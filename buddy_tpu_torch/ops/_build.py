@@ -1,0 +1,112 @@
+"""Build the CUDA kernels of ``csrc/`` at first use and load them with ctypes.
+
+Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
+for ``sm_90a`` into ``buddy_tpu_torch/_build/lib<name>-<hash>.so`` (the hash
+covers the source and the flags, so an edited source is rebuilt).  The build
+directory is listed in ``.gitignore``.  ``build()`` starts one ``nvcc`` per
+missing library, all at once.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+SOURCES = ("stft", "subband_conv")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_lock = threading.Lock()
+_libs: dict = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def source_path(name: str) -> str:
+    return os.path.join(CSRC_DIR, name + ".cu")
+
+
+def library_path(name: str) -> str:
+    with open(source_path(name), "rb") as f:
+        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+
+
+def build(names=SOURCES) -> dict:
+    """Compile every missing library in ``names`` in parallel.
+
+    Returns {name: seconds} for the libraries compiled by this call; the
+    compiler's ``-Xptxas=-v`` report is kept beside each library as ``.log``.
+    Raises with the compiler's output if any build fails.
+    """
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    procs = {}
+    for name in names:
+        out = library_path(name)
+        if os.path.exists(out):
+            continue
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, source_path(name)]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out, time.perf_counter())
+    done, failed = {}, []
+    for name, (proc, tmp, out, t0) in procs.items():
+        log, _ = proc.communicate()
+        with open(out[:-3] + ".log", "w") as f:
+            f.write(log)
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{log}")
+            continue
+        os.replace(tmp, out)
+        done[name] = time.perf_counter() - t0
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return done
+
+
+def load(name: str, signatures: dict) -> ctypes.CDLL:
+    """The loaded library ``name`` with ``argtypes`` set from ``signatures``
+    ({function: [ctypes types]}); every function returns a cudaError_t."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            build([name])
+            lib = ctypes.CDLL(library_path(name))
+            for fn, argtypes in signatures.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = ctypes.c_int
+            _libs[name] = lib
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(device) -> ctypes.c_void_p:
+    import torch
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
