@@ -1,4 +1,4 @@
-"""WAV reading (``buddy_tpu/data/audio_io.py::read_wav``), scipy path only.
+"""WAV reading and writing (``buddy_tpu/data/audio_io.py``), scipy path only.
 
 The in-repo WAVs are IEEE float (format 3) and PCM files are scaled to
 [-1, 1); multi-channel files are averaged to mono.
@@ -26,3 +26,11 @@ def read_wav(path: str) -> Tuple[np.ndarray, int]:
     if data.ndim > 1:
         data = data.mean(axis=1)
     return data, int(sr)
+
+
+def write_wav(path: str, data: np.ndarray, sample_rate: int) -> str:
+    """Write a mono IEEE-float WAV."""
+    from scipy.io import wavfile
+    data = np.ascontiguousarray(np.asarray(data, dtype=np.float32).reshape(-1))
+    wavfile.write(path, sample_rate, data)
+    return path

@@ -17,6 +17,14 @@ from __future__ import annotations
 
 import torch
 
+from buddy_tpu_torch.ops.spec_loss import comp_loss, spec_compress
+
+# the compressed variants and the divisor of their reduction over (F, T):
+# sum over both; mean over both; sum over bins, then mean over frames
+_COMPRESSED = {"l2_comp_stft_sum": lambda F, T: 1.0,
+               "l2_comp_stft_mean": lambda F, T: float(F * T),
+               "l2_comp_stft_summean": lambda F, T: float(T)}
+
 
 def get_frequency_weighting(freqs, freq_weighting=None):
     if freq_weighting is None or freq_weighting == "none":
@@ -43,15 +51,6 @@ def _safe_mag(X):
     return torch.where(zero, 0.0, torch.abs(torch.where(zero, torch.ones_like(X), X)))
 
 
-def _compress(X, factor: float):
-    """(|X|+1e-8)^c * X/|X|; a zero bin gives (1e-8)^c + 0j with gradient 0."""
-    zero = _zero(X)
-    safe = torch.where(zero, torch.ones_like(X), X)
-    mag = torch.abs(safe)
-    return torch.where(zero, torch.full_like(X, (1e-8) ** factor),
-                       safe * ((mag + 1e-8) ** factor / mag))
-
-
 def _per_utterance(err, reduce):
     return reduce(err.reshape(err.shape[0], -1), -1)
 
@@ -72,24 +71,28 @@ def get_loss(loss_args, operator=None):
     if "stft" in name:
         freq_weighting = loss_args.get("freq_weighting", None)
         factor = loss_args.get("compression_factor", None)
-        if name in ("l2_comp_stft_sum", "l2_comp_stft_mean", "l2_comp_stft_summean"):
+        if name in _COMPRESSED:
             if factor is None or not 0 < factor <= 1:
                 raise ValueError(f"{name} needs 0 < compression_factor <= 1")
 
-        def transform(x):
+        def spectrum(x):
             # a complex input is an already-computed STFT
             X = x if x.is_complex() else operator.apply_stft(x)
             if freq_weighting is not None and freq_weighting != "none":
                 freqs = torch.linspace(0, 1, X.shape[-2], device=X.device)[None, :, None] + 1
                 X = X * get_frequency_weighting(freqs.expand(X.shape), freq_weighting)
+            return X
+
+        def transform(x):
+            X = spectrum(x)
             if name == "l2_stft_sum":
                 return X
             if name == "l2_stft_mag_sum":
                 return _safe_mag(X)
             if name == "l2_stft_logmag_sum":
                 return torch.log10(_safe_mag(X) + 1e-8)
-            if name in ("l2_comp_stft_sum", "l2_comp_stft_mean", "l2_comp_stft_summean"):
-                return _compress(X, factor)
+            if name in _COMPRESSED:
+                return spec_compress(X, factor)
             if name == "l2_log_stft_sum":
                 zero = _zero(X)
                 safe = torch.where(zero, torch.ones_like(X), X)
@@ -98,12 +101,16 @@ def get_loss(loss_args, operator=None):
             raise NotImplementedError(f"rec_loss {name} not implemented")
 
         def loss_fn(x, x_hat, x_prepared: bool = False):
-            d = (x if x_prepared else transform(x)) - transform(x_hat)
+            A = x if x_prepared else transform(x)
+            if name in _COMPRESSED:
+                # K4: compression of the estimate, difference, square and the
+                # per-utterance reduction in one pass
+                X_hat = spectrum(x_hat)
+                F_, T_ = X_hat.shape[-2:]
+                scale = weight / _COMPRESSED[name](F_, T_)
+                return comp_loss(A, X_hat, factor, scale)
+            d = A - transform(x_hat)
             err = d.real ** 2 + d.imag ** 2 if d.is_complex() else d ** 2
-            if name == "l2_comp_stft_mean":
-                return weight * _per_utterance(err, torch.mean)
-            if name == "l2_comp_stft_summean":
-                return weight * _per_utterance(err.sum(-2), torch.mean)
             return weight * _per_utterance(err, torch.sum)
 
         loss_fn.prepare = transform

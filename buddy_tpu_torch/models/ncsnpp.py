@@ -229,8 +229,9 @@ class NCSNppTimeModule(nn.Module):
     """NCSN++ wrapped with STFT/ISTFT: (B, C, T) waveform -> hann STFT ->
     pad frames to 16 -> NCSNpp -> ISTFT cropped to the input length."""
 
-    def __init__(self, n_fft: int = 510, hop_length: int = 128, device="cpu", **net_kwargs):
+    def __init__(self, n_fft: int = 510, hop_length: int = 128, device=None, **net_kwargs):
         super().__init__()
+        device = resolve_device(device)
         self.n_fft, self.hop_length = n_fft, hop_length
         self.unet = NCSNpp(**net_kwargs)
         self.spec = STFT(n_fft, hop_length, hann_window(n_fft), pad_mode="reflect",

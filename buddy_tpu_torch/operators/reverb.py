@@ -2,8 +2,8 @@
 ``buddy_tpu/operators/reverb.py``): n_fft=NFFT with a hann(win_length)
 window right-padded to n_fft, centre padding with zeros, hop=hop; the
 "apply" pair adds the win_length right-pad, the window-energy normalisation
-and the half-window delay crop.  ``RIROperator`` (informed, time-domain RIR)
-is not ported yet.
+and the half-window delay crop.  ``RIROperator`` is the informed operator:
+FFT convolution with a known time-domain RIR, batch-first.
 """
 
 from __future__ import annotations
@@ -12,11 +12,14 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from buddy_tpu_torch.device import resolve_device
+from buddy_tpu_torch.operators.shared import Operator
+from buddy_tpu_torch.ops.fftconv import fast_apply_rir
 from buddy_tpu_torch.ops.stft import STFT
 
 
 class OperatorSTFT:
-    def __init__(self, op_hp, sample_rate: int = 16000, device="cpu"):
+    def __init__(self, op_hp, sample_rate: int = 16000, device=None):
         self.sample_rate = sample_rate
         self.n_fft = int(op_hp["NFFT"])
         self.win_length = int(op_hp["win_length"])
@@ -53,3 +56,38 @@ class OperatorSTFT:
     def apply_istft(self, X: torch.Tensor, length: int) -> torch.Tensor:
         x = self.istft(X * self.win_energy_sqrt, length=length + self.win_length // 2)
         return x[..., self.win_length // 2:]
+
+
+class RIROperator(Operator):
+    """Time-domain convolution with a known RIR.  ``params`` is the RIR, (M,)
+    or one per utterance (B, M)."""
+
+    def __init__(self, op_hp, time_kernel_size: int = 10, sample_rate: int = 16000,
+                 device=None):
+        self.time_kernel_size = time_kernel_size
+        self.params = None
+        self.device = resolve_device(device)
+        self.op_stft = OperatorSTFT(op_hp, sample_rate, self.device)
+        self.sample_rate = sample_rate
+
+    def degradation(self, x: torch.Tensor, rm_delay: bool = False,
+                    filt: torch.Tensor | None = None, **_ignored) -> torch.Tensor:
+        """FFT-convolve (B, n) or (n,) waveforms with the RIR; ``filt``
+        overrides the stored one."""
+        if filt is None:
+            if self.params is None:
+                raise ValueError("filter is None")
+            filt = self.params
+        return fast_apply_rir(x, filt, rm_delay=rm_delay)
+
+    def update_params(self, k, **_ignored) -> None:
+        self.params = torch.as_tensor(k, dtype=torch.float32, device=self.device)
+
+    def get_time_RIR(self) -> torch.Tensor:
+        return self.params
+
+    def apply_stft(self, x):
+        return self.op_stft.apply_stft(x)
+
+    def apply_istft(self, X, length=None):
+        return self.op_stft.apply_istft(X, length)

@@ -5,9 +5,10 @@ frequency bin, filter H (B, F, Nf) — kernel K3 (``ops/subband_conv.py``).
 
 ``BlindSubbandFiltering``: the filter is parameterised by per-EQ-band
 multi-exponential magnitude decays plus per-(bin, frame) phases
-``{"decay", "weights", "phases"}``; ``compute_H`` designs the magnitude,
-applies the phases and projects through ``cons`` (ISTFT -> minimum phase ->
-fixed direct path -> STFT).  Tensors are batch-first: decay and weights
+``{"decay", "weights", "phases"}``; ``compute_H`` designs the magnitude and
+applies the phases (kernel K6, ``ops/filter_design.py``) and projects
+through ``cons`` (ISTFT -> minimum phase, kernel K5 -> fixed direct path ->
+STFT).  Tensors are batch-first: decay and weights
 (B, E, bands), phases and H (B, F, Nf), one row per utterance.  Every
 function also takes unbatched parameters.
 """
@@ -23,6 +24,8 @@ import torch.nn.functional as F
 from buddy_tpu_torch.device import resolve_device
 from buddy_tpu_torch.operators.reverb import OperatorSTFT
 from buddy_tpu_torch.operators.shared import Operator
+from buddy_tpu_torch.ops.filter_design import (FilterDesignGeometry, design_plain,
+                                               filter_design)
 from buddy_tpu_torch.ops.minphase import minimum_phase_version
 from buddy_tpu_torch.ops.subband_conv import subband_conv
 
@@ -150,11 +153,13 @@ class BlindSubbandFiltering(SubbandFiltering):
         fr = self.sample_rate / self.hop_length
         self.max_decay = 6.908 / (float(hp["T60min"]) * fr)
         self.min_decay = 6.908 / (float(hp["T60max"]) * fr)
-        as_t = lambda a: torch.as_tensor(a, device=self.device)
-        self._interp_mat = as_t(self._interp_matrix(np.asarray(self.freqs, np.float32),
-                                                    self.EQ_freqs))
-        self.direct_path_mag_correction = as_t(self._compute_direct_path_mag_correction())
-        self._ola_factors = as_t(self._compute_ola_factors())
+        dpc, ola = self._compute_direct_path_mag_correction(), self._compute_ola_factors()
+        # K6's constants: compute_H always corrects the OLA; the direct-path
+        # correction is zero where the direct path is not fixed
+        self._design_geometry = FilterDesignGeometry(
+            np.asarray(self.freqs, np.float32), self.EQ_freqs, ola,
+            dpc if self.fix_direct_path else np.zeros_like(dpc), self.fix_EQ_extremes,
+            self.device)
         self.params = None
 
     # --- constants -----------------------------------------------------
@@ -190,35 +195,12 @@ class BlindSubbandFiltering(SubbandFiltering):
             factors[k] = w[int((K - k) * self.hop_length):].sum() / w.sum()
         return factors
 
-    @staticmethod
-    def _interp_matrix(x: np.ndarray, xp: np.ndarray) -> np.ndarray:
-        """M with M @ fp == np.interp(x, xp, fp) for every fp (ends clamped)."""
-        j = np.clip(np.searchsorted(xp, x) - 1, 0, len(xp) - 2)
-        t = np.clip((x - xp[j]) / (xp[j + 1] - xp[j]), 0.0, 1.0).astype(np.float32)
-        M = np.zeros((len(x), len(xp)), np.float32)
-        rows = np.arange(len(x))
-        M[rows, j] = 1.0 - t
-        M[rows, j + 1] = t
-        return M
-
     # --- filter design ---------------------------------------------------
-    def design_subband_filter(self, params: Dict[str, torch.Tensor]) -> torch.Tensor:
-        """Multi-exponential decays -> log -> linear interpolation across the
-        EQ breakpoints -> exp: (..., E, bands) -> (..., F, Nf)."""
-        decay = torch.exp(params["decay"])
-        n = torch.arange(self.Nf, dtype=torch.float32, device=decay.device)
-        env = (params["weights"][..., None] * decay[..., None] ** (-n)).sum(-3)
-        if self.fix_EQ_extremes:
-            env = F.pad(env, (0, 0, 1, 1))
-        return torch.exp(self._interp_mat @ torch.log(env + 1e-6))
-
-    def design_filter(self, params, correct_OLA: bool = True) -> torch.Tensor:
-        A = self.design_subband_filter(params) + 1e-6
-        if correct_OLA:
-            A = A * self._ola_factors
-        if self.fix_direct_path:
-            A = A + self.direct_path_mag_correction
-        return A
+    def design_filter(self, params) -> torch.Tensor:
+        """The magnitude A (..., F, Nf) alone: multi-exponential decays -> log
+        -> linear interpolation across the EQ breakpoints -> exp, OLA and
+        direct-path corrections (the plain version of K6 without its phasor)."""
+        return design_plain(params["decay"], params["weights"], self._design_geometry, self.Nf)
 
     def cons(self, X: torch.Tensor, length: int) -> torch.Tensor:
         """Consistency projection: pad frames -> ISTFT -> minimum phase ->
@@ -234,9 +216,14 @@ class BlindSubbandFiltering(SubbandFiltering):
         return self.stft(h)[..., 1:-1][..., :L]
 
     def compute_H(self, params, phases=None) -> torch.Tensor:
-        """H = design_filter * exp(i*phases), then cons()."""
+        """H = design_filter * exp(i*phases) (kernel K6), then cons()."""
         ph = params["phases"] if phases is None else phases
-        H = self.design_filter(params) * torch.exp(1j * ph)
+        decay, weights = params["decay"], params["weights"]
+        if ph.dim() == 2:
+            H = filter_design(decay[None], weights[None], ph[None], self._design_geometry)[0]
+        else:
+            expand = lambda t: t.expand((ph.shape[0],) + t.shape[-2:])
+            H = filter_design(expand(decay), expand(weights), ph, self._design_geometry)
         return self.cons(H, length=self.length_rir)
 
     def get_noise_phases(self, noise: torch.Tensor) -> torch.Tensor:
@@ -257,12 +244,17 @@ class BlindSubbandFiltering(SubbandFiltering):
         base = {"decay": torch.as_tensor(decay, device=self.device),
                 "weights": torch.as_tensor(wts, device=self.device)}
         with torch.no_grad():
-            A = self.design_filter(base)
-            H = self.cons(A * torch.exp(1j * self.get_noise_phases(noise.to(self.device))),
-                          length=self.length_rir)
+            H = self.compute_H(base, phases=self.get_noise_phases(noise.to(self.device)))
         params = {k: v.expand((batch,) + v.shape).clone() for k, v in base.items()}
         params["phases"] = torch.angle(H)
         return params, H
+
+    def reset(self, noise: torch.Tensor | None = None) -> None:
+        """Fresh single-utterance state on ``self.params`` (decay, weights
+        (E, bands), phases (F, Nf)) and ``self.H`` (F, Nf), from the phase
+        noise (hop*Nf,) or a fresh draw."""
+        params, H = self.reset_batched(1, noise=None if noise is None else noise.reshape(1, -1))
+        self.params, self.H = {k: v[0] for k, v in params.items()}, H[0]
 
     def update_params(self, params_dict) -> None:
         """Reset decay and weights from T60 breakpoints."""

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from buddy_tpu_torch.device import resolve_device
 from buddy_tpu_torch.ops import _build
 
 _SIGNATURES = {
@@ -183,12 +184,12 @@ class STFT:
     ``device``; ``stft`` and ``istft`` follow torch.stft / torch.istft."""
 
     def __init__(self, n_fft: int, hop_length: int, window: np.ndarray, *,
-                 pad_mode: str = "reflect", device="cpu"):
+                 pad_mode: str = "reflect", device=None):
         window = np.asarray(window, np.float32)
         if window.shape != (n_fft,):
             raise ValueError("window must be length n_fft (pre-padded)")
         self.n_fft, self.hop, self.pad_mode = n_fft, hop_length, pad_mode
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.n_bins = n_fft // 2 + 1
         self.taps = -(-window_support(window) // hop_length)
         rows = self.taps * hop_length

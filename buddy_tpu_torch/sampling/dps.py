@@ -159,8 +159,11 @@ class EulerHeunSamplerDPS(EulerHeunSampler):
         if blind:
             params, state, H = self._optimize_op(operator, x_den.detach(), t_hat, params,
                                                  state, noise)
-        lh_score = self._likelihood_score(
-            x_den, x_leaf, lambda xd: operator.degradation(xd, H=H, mode="waveform"))
+        if hasattr(operator, "subband_filtering"):
+            degrade = lambda xd: operator.degradation(xd, H=H, mode="waveform")
+        else:                      # RIROperator: H carries the time-domain RIRs (B, M)
+            degrade = lambda xd: operator.degradation(xd, filt=H)
+        lh_score = self._likelihood_score(x_den, x_leaf, degrade)
         x_den = x_den.detach()
         csm = self.ps.get("constraint_speech_magnitude", None)
         if csm is not None and csm.get("use", False):
@@ -205,16 +208,20 @@ class EulerHeunSamplerDPS(EulerHeunSampler):
         ``ys``: (B, 1, n) observations.  Blind mode takes each utterance's
         operator parameters and initial H (leading batch axis, e.g. from
         ``BlindSubbandFiltering.reset_batched``); informed mode takes the
-        subband filters ``H_batch``.  ``noise`` is a ``NoiseSource`` (default:
-        seed 0 on the sampler's device).  Returns the final denoised
-        estimates x_den (B, 1, n); the final operator state is left on
+        subband filters ``H_batch`` (B, F, Nf) or, with a ``RIROperator``,
+        the time-domain RIRs (B, M) — without them the operator's one RIR is
+        shared by the batch.  ``noise`` is a ``NoiseSource`` (default: seed 0
+        on the sampler's device).  Returns the final denoised estimates x_den
+        (B, 1, n); in blind mode the final operator state is left on
         ``operator.params`` / ``operator.H``.
         """
-        if not hasattr(operator, "subband_filtering"):
-            raise NotImplementedError("only the subband operators are ported")
-        if H_batch is None or (blind and op_params_batch is None):
-            raise ValueError("blind mode needs op_params_batch and H_batch; "
-                             "informed mode needs H_batch")
+        subband = hasattr(operator, "subband_filtering")
+        if blind and (not subband or op_params_batch is None or H_batch is None):
+            raise ValueError("blind mode needs a subband operator, op_params_batch and H_batch")
+        if H_batch is None:
+            if subband:
+                raise ValueError("informed subband mode needs H_batch")
+            H_batch = operator.params.expand((ys.shape[0],) + operator.params.shape[-1:])
         self._build_losses(operator, blind)
         noise = noise if noise is not None else self.default_noise()
         ys = ys.to(self.device)
@@ -224,6 +231,29 @@ class EulerHeunSamplerDPS(EulerHeunSampler):
         if blind:
             operator.params, operator.H = params, H
         return x_den[:, None]
+
+    def predict_conditional(self, y, operator, blind: bool = False, noise=None):
+        """Guided sampling of one utterance, the B = 1 case of the batched
+        program.  ``y``: (1, n).  The operator carries its own state: blind
+        mode starts from ``operator.params`` / ``operator.H`` (e.g. after
+        ``reset``) and leaves the final state there, unbatched; informed mode
+        reads ``operator.H`` (subband) or ``operator.params`` (the RIR).
+        Returns the final denoised estimate (1, n)."""
+        batch = lambda t: t if t is None else t[None]
+        params = None
+        if blind:
+            params = {k: batch(v) for k, v in operator.params.items()}
+            H = batch(operator.H) if operator.H is not None else operator.compute_H(params)
+        elif hasattr(operator, "subband_filtering"):
+            H = batch(operator.H)
+        else:
+            H = batch(operator.params)
+        out = self.predict_conditional_batched(y[:, None, :], operator, blind=blind, noise=noise,
+                                               op_params_batch=params, H_batch=H)
+        if blind:
+            operator.params = {k: v[0] for k, v in operator.params.items()}
+            operator.H = operator.H[0]
+        return out[:, 0, :]
 
     def predict_unconditional(self, *args, **kwargs):
         raise ValueError("DPS not made for unconditional sampling")

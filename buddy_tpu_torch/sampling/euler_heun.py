@@ -1,5 +1,6 @@
-"""Sampler base (``buddy_tpu/sampling/euler_heun.py``): schedule, churn,
-Tweedie estimate, and the source of the sampler's Gaussian noise.
+"""Sampler base and the unconditional Euler-Heun sampler
+(``buddy_tpu/sampling/euler_heun.py``): schedule, churn, Tweedie estimate,
+the reverse-diffusion loop, and the source of the sampler's Gaussian noise.
 
 The JAX package compiles the T-step loop into one ``lax.scan``; here it is a
 Python loop over eager steps.  The configured Snoise is never used (the
@@ -61,9 +62,20 @@ class Sampler:
         return NoiseSource(torch.Generator(device=self.device).manual_seed(seed))
 
 
+class NoSampler(Sampler):
+    """Stub sampler: every entry point returns None."""
+
+    def predict(self, *a, **k):
+        return None
+
+    predict_unconditional = predict
+    predict_conditional = predict
+    step = predict
+
+
 class EulerHeunSampler(Sampler):
-    """Stochastic Euler-Heun sampler settings (Schurn, Stmin, Stmax, order).
-    Its unconditional program is not ported yet; the DPS sampler builds on it."""
+    """Unconditional stochastic Euler-Heun sampler; the DPS sampler builds
+    on it."""
 
     def __init__(self, model, diff_params, args, device=None):
         super().__init__(model, diff_params, args, device)
@@ -79,3 +91,35 @@ class EulerHeunSampler(Sampler):
 
     def _denoise(self, x, t):
         return self.get_tweedie_estimate(x, t)
+
+    def _step(self, x, t_i, t_ip1, gamma_i, noise):
+        """One reverse-diffusion step."""
+        t_i, t_ip1 = np.float32(t_i), np.float32(t_ip1)
+        t_hat = np.float32(t_i + np.float32(gamma_i) * t_i)
+        eps = noise.normal("eps", x.shape, x.device)
+        x_hat = x + float(np.sqrt(np.maximum(t_hat ** 2 - t_i ** 2, np.float32(0)))) * eps
+        d = (x_hat - self._denoise(x_hat, float(t_hat))) / float(t_hat)
+        dt = float(t_ip1 - t_hat)
+        x_next = x_hat + dt * d
+        if self.order == 2 and t_ip1 != 0:
+            d2 = (x_next - self._denoise(x_next, float(t_ip1))) / float(t_ip1)
+            x_next = x_hat + dt * 0.5 * (d + d2)
+        return x_next
+
+    @torch.no_grad()
+    def predict(self, shape, noise=None, **_ignored) -> torch.Tensor:
+        """Sample ``shape`` = (B, n) waveforms from the prior; returns the
+        final x (not the last denoised estimate)."""
+        noise = noise if noise is not None else self.default_noise()
+        t = self.create_schedule()
+        gamma = self.get_gamma(t)
+        x = float(t[0]) * noise.normal("init", tuple(shape), self.device)
+        for i in range(len(t) - 1):
+            x = self._step(x, t[i], t[i + 1], gamma[i], noise)
+        return x
+
+    def predict_unconditional(self, shape, noise=None, **_ignored) -> torch.Tensor:
+        return self.predict(shape, noise=noise)
+
+    def predict_conditional(self, *args, **kwargs):
+        raise NotImplementedError

@@ -3,9 +3,9 @@
 Single-channel iterative MCLP (statistics_mode='full') on a hann 512/128
 STFT, batched over utterances and frequency bins: each iteration builds the
 power-weighted (taps x taps) correlation R and vector P per bin and solves
-(R + load I) G = P with one batched complex ``torch.linalg.solve``.  The
-diagonal loading is trace-scaled; the power weighting is a division, never a
-reciprocal multiply (complex64 WPE is ill-conditioned).
+(R + load I) G = P with kernel K7 (``ops/wpe_solve.py``), which also forms
+the trace-scaled diagonal loading.  The power weighting is a division, never
+a reciprocal multiply (complex64 WPE is ill-conditioned).
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import torch
 import torch.nn.functional as F
 
 from buddy_tpu_torch.ops.stft import STFT, hann_window
+from buddy_tpu_torch.ops.wpe_solve import wpe_solve
 
 
 def _build_y_tilde(Y: torch.Tensor, taps: int, delay: int) -> torch.Tensor:
@@ -27,16 +28,13 @@ def wpe_bins(Y: torch.Tensor, taps: int, delay: int, iterations: int,
              eps: float = 1e-10, diag_rel: float = 1e-6) -> torch.Tensor:
     """WPE of independent bins: Y (..., T) complex -> dereverberated (..., T)."""
     Yt = _build_y_tilde(Y, taps, delay)                            # (..., taps, T)
-    eye = torch.eye(taps, dtype=Y.dtype, device=Y.device)
     X = Y
     for _ in range(iterations):
         power = torch.clamp(torch.abs(X) ** 2, min=eps)            # (..., T)
         Yt_norm = Yt / power[..., None, :]
         R = Yt_norm @ Yt.conj().transpose(-1, -2)                  # (..., taps, taps)
         P = (Yt_norm @ Y.conj()[..., None])[..., 0]                # (..., taps)
-        trace = torch.diagonal(R, dim1=-2, dim2=-1).real.sum(-1)
-        load = diag_rel * (trace / taps) + eps
-        G = torch.linalg.solve(R + load[..., None, None] * eye, P)
+        G = wpe_solve(R, P, diag_rel, eps)
         X = Y - (G.conj()[..., None, :] @ Yt)[..., 0, :]
     return X
 

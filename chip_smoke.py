@@ -6,23 +6,34 @@
 Phases, each printing one line:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
-2. building the CUDA kernels (K2, K3) from ``buddy_tpu_torch/csrc`` with
-   nvcc, one process per source, all at once (Triton's K1 compiles at its
-   first launch, in phase 3);
+2. building the CUDA kernels (K2, K3, K6, K7) from ``buddy_tpu_torch/csrc``
+   with nvcc, one process per source, all at once (the Triton kernels K1,
+   K4, K5 compile at their first launch, in phase 3);
 3. each kernel at the main path's shapes and dtypes (K2 at its three
-   geometries: operator, model, WPE), forward and backward,
+   geometries: operator, model, WPE; K4 at the loss's and the RIR
+   regulariser's shape and in its three reductions), forward and backward,
    against its plain PyTorch version on the same inputs, with the stated
    tolerance, and timed beside its plain version and a PyTorch library call
-   (the yardstick; the port never calls it);
-4. the main path: blind BUDDy dereverberation of the 8 in-repo degraded
-   utterances (65536 samples) with the full-width network of
+   where one computes the same function (the yardstick; the port never
+   calls it);
+4. the main path, through the tester: a paired test set (the 8 in-repo clean
+   utterances of 65536 samples, 8 RIRs made from a seed) is written under
+   chiprun_out/, and ``Tester.do_test()`` runs blind BUDDy dereverberation
+   of it as one batch with the full-width network of
    conf/network/ncsnpp.yaml (random weights from a seed, bf16 body), full
-   guidance, 10 operator updates per step, T cut to 4 steps, built with the
-   port's compose + instantiate; every kernel's launch count must be > 0;
-   then one more run under torch.profiler: device time of each of the
-   port's kernels and of the rest, and the device's idle share (the
-   per-kernel table goes to chiprun_out/);
-5. the same program at a small size on the card (kernels) and on the CPU
+   guidance, 10 operator updates per step, WPE warm init, T cut to 4 steps;
+   every kernel's launch count must be > 0 and the five output directories
+   must hold 8 finite WAVs each; then one more run under torch.profiler:
+   device time of each of the port's kernels and of the rest, the count of
+   kernel launches, and the device's idle share (the per-kernel table goes
+   to chiprun_out/);
+5. the tester's other paths: informed dereverberation (serial, time-domain
+   RIR operator, 2 items) and unconditional sampling (2 samples of 65536)
+   at full width with T=2; one item of 196608 samples through the chunked
+   path at a small network; and the CLI, ``python -m
+   buddy_tpu_torch.testing``, as a subprocess with a checkpoint that the
+   JAX package wrote;
+6. the blind program at a small size on the card (kernels) and on the CPU
    (plain versions) with the same weights and noise: the outputs must agree.
 
 A JSON line of the kernels' results precedes the last line, which is
@@ -32,6 +43,7 @@ exits non-zero without that line.  It imports nothing of JAX.
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -40,6 +52,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
 N_STEPS = 4                     # diffusion steps of the main-path run (T=201 in the tester)
+OUT_DIR = os.path.join(REPO, "chiprun_out")
+TINY_CKPT = os.path.join(REPO, "tests", "goldens", "torch_tiny.ckpt.npz")
+TINY_CKPT_NET = ["network.nf=8", "network.ch_mult=[1,2,2,2]", "network.num_res_blocks=1"]
 
 
 def log(msg: str) -> None:
@@ -255,19 +270,491 @@ def kernel_checks(dev):
     return entries
 
 
+def fused_kernel_checks(dev):
+    """K4-K7 against their plain versions at the main path's shapes."""
+    import numpy as np
+    import torch
+    import buddy_tpu_torch.sampling.wpe as wpe
+    from buddy_tpu_torch.config import compose
+    from buddy_tpu_torch.operators.subband import BlindSubbandFiltering
+    from buddy_tpu_torch.ops import filter_design as K6, minphase as K5, spec_loss as K4
+    from buddy_tpu_torch.ops import wpe_solve as K7
+    from buddy_tpu_torch.ops.stft import STFT, hann_window
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    rand = lambda *s: torch.randn(s, generator=g, device=dev)
+    crand = lambda *s: torch.complex(rand(*s), rand(*s))
+    rel = lambda a, b: float((a - b).abs().max() / b.abs().max())
+    entries = {}
+    args = compose("conf_VCTK.yaml", ["tester=blind_dereverberation_BUDDy"])
+    op = BlindSubbandFiltering(args["tester"]["informed_dereverberation"]["op_hp"],
+                               sample_rate=16000, device=dev)
+    c = float(args["tester"]["posterior_sampling"]["rec_loss"]["compression_factor"])
+    B = 8
+
+    # --- K4 compressed-STFT loss: the observation's shape and the RIR regulariser's -----
+    T_loss = op.apply_stft(torch.zeros(1, 65536, device=dev)).shape[-1]
+    T_reg = op.apply_stft(torch.zeros(1, op.length_rir + 1024, device=dev)).shape[-1]
+    for T in (T_loss, T_reg):
+        X = crand(B, 513, T) * 0.3
+        X[..., -4:] = 0                                  # apply_stft's zero-padded frames
+        Aref = K4.compress_plain(crand(B, 513, T) * 0.3, c)
+        gC = crand(B, 513, T)
+        # compression: float32 pow as exp(c log m) in the kernel against torch's pow,
+        # a few ulp: 1e-5 of the peak, forward and backward
+        Ck, Cp = K4.spec_compress(X, c), K4.compress_plain(X, c)
+        e_cf = max_err(torch.view_as_real(Ck), torch.view_as_real(Cp))
+        t_cf = 1e-5 * float(Cp.abs().max())
+        check(f"spec_compress fwd T={T}", e_cf, t_cf)
+        dk, dp = K4.spec_compress_backward(X, gC, c), K4.compress_backward_plain(X, gC, c)
+        e_cb = max_err(torch.view_as_real(dk), torch.view_as_real(dp))
+        t_cb = 1e-5 * float(dp.abs().max())
+        check(f"spec_compress bwd T={T}", e_cb, t_cb)
+        e_lf = e_lb = 0.0
+        for red, div in (("sum", 1.0), ("mean", 513.0 * T), ("summean", float(T))):
+            scale = 512.0 / div
+            Lk, Lp = K4.comp_loss(Aref, X, c, scale), K4.comp_loss_plain(Aref, X, c, scale)
+            # float32 sums of 513*T terms in another order: 1e-4 relative
+            check(f"comp_loss fwd {red} T={T}", rel(Lk, Lp), 1e-4)
+            e_lf = max(e_lf, rel(Lk, Lp))
+            gL = rand(B)
+            gk = K4.comp_loss_backward(Aref, X, gL, c, scale)
+            gp = K4.comp_loss_backward_plain(Aref, X, gL, c, scale)
+            for what, a, b in (("dA", gk[0], gp[0]), ("dX", gk[1], gp[1])):
+                e = max_err(torch.view_as_real(a), torch.view_as_real(b)) / float(b.abs().max())
+                check(f"comp_loss bwd {what} {red} T={T}", e, 1e-5)   # elementwise, as above
+                e_lb = max(e_lb, e)
+        if T == T_loss:
+            n = X.numel()
+            scale = 512.0 / T
+            Xg = X.detach().requires_grad_(True)
+            Lg = K4.comp_loss_plain(Aref, Xg, c, scale)
+            Cg = K4.compress_plain(Xg, c)
+            ones = torch.ones(B, device=dev)
+            with torch.no_grad():
+                times_cf = (cuda_ms(lambda: K4.spec_compress(X, c)),
+                            cuda_ms(lambda: K4.compress_plain(X, c)), None)
+                times_lf = (cuda_ms(lambda: K4.comp_loss(Aref, X, c, scale)),
+                            cuda_ms(lambda: K4.comp_loss_plain(Aref, X, c, scale)), None)
+            times_cb = (cuda_ms(lambda: K4.spec_compress_backward(X, gC, c)),
+                        cuda_ms(lambda: torch.autograd.grad(Cg, Xg, gC, retain_graph=True)), None)
+            times_lb = (cuda_ms(lambda: K4.comp_loss_backward(Aref, X, ones, c, scale,
+                                                              need_a=False)),
+                        cuda_ms(lambda: torch.autograd.grad(Lg, Xg, ones, retain_graph=True)),
+                        None)
+            shape = list(X.shape)
+            entries["spec_compress_fwd"] = dict(err=e_cf, tol=t_cf, times=times_cf, shape=shape,
+                                                bound=bound_ms(16 * n, 30 * n))
+            entries["spec_compress_bwd"] = dict(err=e_cb, tol=t_cb, times=times_cb, shape=shape,
+                                                bound=bound_ms(24 * n, 50 * n))
+            entries["comp_loss_fwd"] = dict(err=e_lf, tol=1e-4, times=times_lf, shape=shape,
+                                            bound=bound_ms(16 * n + 4 * B, 40 * n))
+            entries["comp_loss_bwd"] = dict(err=e_lb, tol=1e-5, times=times_lb, shape=shape,
+                                            bound=bound_ms(24 * n + 4 * B, 80 * n))
+    log(f"kernel K4 compressed loss: compression and loss, fwd/bwd, sum/mean/summean, match "
+        f"the plain version at (8,513,{T_loss}) and (8,513,{T_reg})")
+
+    # --- K5 minimum phase: the operator's RIR (8, 12928) -> n = 25856 ---------------------
+    L = op.length_rir + op.hop_length
+    h = rand(B, L) * torch.exp(-torch.arange(L, device=dev) / 2000.0)
+    h[:, 0] = 2.0
+    gy = rand(B, L)
+    yk, yp = K5.minimum_phase_version(h), K5.minimum_phase_plain(h)
+    # the same cuFFT calls on both sides; log, exp and sincos of the kernel against
+    # torch's differ by a few ulp at phases of tens of radians: 1e-4 of the peak
+    e_mf, t_mf = max_err(yk, yp), 1e-4 * float(yp.abs().max())
+    check("minimum_phase fwd", e_mf, t_mf)
+    hk, hp = h.detach().requires_grad_(True), h.detach().requires_grad_(True)
+    K5.minimum_phase_version(hk).backward(gy)
+    yp_graph = K5.minimum_phase_plain(hp)
+    (gp,) = torch.autograd.grad(yp_graph, hp, gy, retain_graph=True)
+    e_mb, t_mb = max_err(hk.grad, gp), 5e-4 * float(gp.abs().max())
+    check("minimum_phase bwd", e_mb, t_mb)
+    check("minimum_phase bwd (explicit formula)",
+          max_err(K5.minimum_phase_backward_plain(h, gy), gp), t_mb)
+    _, Hs, zs = K5._launch_forward(h)
+    with torch.no_grad():
+        t_f = (cuda_ms(lambda: K5.minimum_phase_version(h)),
+               cuda_ms(lambda: K5.minimum_phase_plain(h)), None)
+    t_b = (cuda_ms(lambda: K5.minimum_phase_backward(Hs, zs, gy)),
+           cuda_ms(lambda: torch.autograd.grad(yp_graph, hp, gy, retain_graph=True)), None)
+    n = 2 * L
+    fft_flops = 4 * 5.0 * B * n * np.log2(n)              # four complex FFTs of n points
+    entries["minphase_fwd"] = dict(err=e_mf, tol=t_mf, times=t_f, shape=[B, L],
+                                   bound=bound_ms(8 * B * L, fft_flops + 60.0 * B * n))
+    entries["minphase_bwd"] = dict(err=e_mb, tol=t_mb, times=t_b, shape=[B, L],
+                                   bound=bound_ms(8 * B * L + 16 * B * n, fft_flops + 60.0 * B * n))
+    log(f"kernel K5 minimum phase: fwd/bwd match the plain version at h {[B, L]} (n = {n})")
+
+    # --- K6 filter design + phasor at the operator's parameters ---------------------------
+    params, _ = op.reset_batched(B, generator=torch.Generator(device=dev).manual_seed(2))
+    decay = params["decay"] * (0.5 + torch.rand(params["decay"].shape, generator=g, device=dev))
+    weights = params["weights"] * (0.5 + torch.rand(decay.shape, generator=g, device=dev))
+    phases = params["phases"]
+    geom = op._design_geometry
+    gH = crand(*phases.shape)
+    Hk, Hp = K6.filter_design(decay, weights, phases, geom), \
+        K6.filter_design_plain(decay, weights, phases, geom)
+    # decay^(-n) up to n = 99, log, exp and sincos in float32 on both sides: 1e-4 of the peak
+    e_df = max_err(torch.view_as_real(Hk), torch.view_as_real(Hp))
+    t_df = 1e-4 * float(Hp.abs().max())
+    check("filter_design fwd", e_df, t_df)
+    leaves = [t.detach().requires_grad_(True) for t in (decay, weights, phases)]
+    Hp_graph = K6.filter_design_plain(*leaves, geom)
+    auto = torch.autograd.grad(Hp_graph, leaves, gH, retain_graph=True)
+    kern = K6.filter_design_backward(decay, weights, phases, gH, geom)
+    again = K6.filter_design_backward(decay, weights, phases, gH, geom)
+    e_db = 0.0
+    for what, a, b, r in zip(("ddecay", "dweights", "dphases"), kern, auto, again):
+        # decay and weights: float32 sums of ~51k terms in another order: 1e-3 of the peak
+        e = float((a - b).abs().max() / b.abs().max())
+        check(f"filter_design bwd {what}", e, 1e-3)
+        e_db = max(e_db, e)
+        if not torch.equal(a, r):
+            raise AssertionError(f"filter_design bwd {what} differs between two runs")
+    with torch.no_grad():
+        t_f = (cuda_ms(lambda: K6.filter_design(decay, weights, phases, geom)),
+               cuda_ms(lambda: K6.filter_design_plain(decay, weights, phases, geom)), None)
+    t_b = (cuda_ms(lambda: K6.filter_design_backward(decay, weights, phases, gH, geom)),
+           cuda_ms(lambda: torch.autograd.grad(Hp_graph, leaves, gH, retain_graph=True)), None)
+    n = phases.numel()
+    small = 4 * (2 * decay.numel() + geom.dpc.numel())
+    entries["filter_design_fwd"] = dict(err=e_df, tol=t_df, times=t_f, shape=list(phases.shape),
+                                        bound=bound_ms(12 * n + small, 120.0 * n))
+    entries["filter_design_bwd"] = dict(err=e_db, tol=1e-3, times=t_b, shape=list(phases.shape),
+                                        bound=bound_ms(16 * n + small, 160.0 * n))
+    log(f"kernel K6 filter design: fwd/bwd match the plain version at params "
+        f"{list(decay.shape)}, phases {list(phases.shape)}; the backward is bit-identical "
+        f"between two runs")
+
+    # --- K7 WPE solve: the systems of the warm init, 8 x 257 bins of 50 x 50 ---------------
+    ys = torch.from_numpy(load_wavs("degraded", 8, 65536)).to(dev)[:, 0]
+    geomw = STFT(512, 128, hann_window(512), pad_mode="constant", device=dev)
+    Y = geomw.stft(ys)
+    taps, delay = 50, 2
+    Yt = wpe._build_y_tilde(Y, taps, delay)
+    Yn = Yt / torch.clamp(torch.abs(Y) ** 2, min=1e-10)[..., None, :]
+    R = (Yn @ Yt.conj().transpose(-1, -2)).contiguous()
+    P = (Yn @ Y.conj()[..., None])[..., 0].contiguous()
+    load = 1e-6 * torch.diagonal(R, dim1=-2, dim2=-1).real.sum(-1).double() / taps + 1e-10
+    A64 = R.to(torch.complex128) + load[..., None, None] * torch.eye(taps, device=dev)
+    P64 = P.to(torch.complex128)
+    resid = lambda G: float(torch.linalg.norm((A64 @ G.to(torch.complex128)[..., None])[..., 0]
+                                              - P64) / torch.linalg.norm(P64))
+    Gk, Gp = K7.wpe_solve(R, P), K7.wpe_solve_plain(R, P)
+    r_k, r_p = resid(Gk), resid(Gp)
+    if not (r_k <= max(r_p, 1e-6)):
+        raise AssertionError(f"wpe_solve: residual {r_k:.3e} above the plain version's {r_p:.3e}")
+
+    def dereverb(solve, spec=Y, iterations=1):
+        old, wpe.wpe_solve = wpe.wpe_solve, solve
+        X = wpe.wpe_bins(spec, taps, delay, iterations)
+        wpe.wpe_solve = old
+        return geomw.istft(X.to(torch.complex64), length=ys.shape[-1])
+
+    def solve64(Rm, Pm, diag_rel, eps):
+        ld = diag_rel * torch.diagonal(Rm, dim1=-2, dim2=-1).real.sum(-1).double() / taps + eps
+        M = Rm.to(torch.complex128) + ld[..., None, None] * torch.eye(taps, device=dev)
+        return torch.linalg.solve(M, Pm.to(torch.complex128)).to(Pm.dtype)
+
+    # one WPE iteration isolates the solve (the same R and P on every side): the kernel's
+    # waveform must be no further from the complex128 solve's than the plain complex64
+    # solve's is
+    x64 = dereverb(solve64)
+    peak = float(x64.abs().max())
+    d_k, d_p = max_err(dereverb(K7.wpe_solve), x64), max_err(dereverb(K7.wpe_solve_plain), x64)
+    check("wpe_solve: dereverberated waveform against the complex128 solve", d_k, d_p)
+    # all five iterations against WPE in complex128 throughout, for the record: the
+    # correlations are formed in complex64 on both sides and the iterations amplify that
+    full64 = dereverb(solve64, Y.to(torch.complex128), 5)
+    d5_k = max_err(dereverb(K7.wpe_solve, iterations=5), full64) / float(full64.abs().max())
+    d5_p = max_err(dereverb(K7.wpe_solve_plain, iterations=5), full64) / float(full64.abs().max())
+    eye = torch.eye(taps, dtype=R.dtype, device=dev)
+    Ald = R + load.float()[..., None, None] * eye
+
+    def chol():
+        Lc, _ = torch.linalg.cholesky_ex(Ald)
+        return torch.cholesky_solve(P[..., None], Lc)
+
+    with torch.no_grad():
+        t_solve = (cuda_ms(lambda: K7.wpe_solve(R, P), reps=5), cuda_ms(
+            lambda: K7.wpe_solve_plain(R, P), reps=5),
+            cuda_ms(lambda: torch.linalg.solve(Ald, P), reps=5))
+        t_chol = cuda_ms(chol, reps=5)
+    nsys = P.numel() // taps
+    # library_ms is the faster of the two library routes; both stand beside it by name
+    entries["wpe_solve"] = dict(err=d_k, tol=d_p, shape=[nsys, taps, taps],
+                                times=(t_solve[0], t_solve[1], min(t_solve[2], t_chol)),
+                                bound=bound_ms(8 * (R.numel() + 2 * P.numel()),
+                                               nsys * 8.0 * taps ** 3 / 3),
+                                extra={"library_linalg_solve_ms": t_solve[2],
+                                       "library_cholesky_ms": t_chol})
+    log(f"kernel K7 WPE solve (LU with partial pivoting in float64): {nsys} systems of "
+        f"{taps}x{taps}; residual |(R+load I)G-P|/|P| kernel {r_k:.3e}, plain complex64 "
+        f"{r_p:.3e}; dereverberated waveform after one iteration against the complex128 solve, "
+        f"max abs / peak: kernel {d_k / peak:.3e}, plain {d_p / peak:.3e}; after five iterations "
+        f"against WPE in complex128 throughout: kernel {d5_k:.3e}, plain {d5_p:.3e}; ms kernel {t_solve[0]:.4f}, "
+        f"torch.linalg.solve {t_solve[2]:.4f}, cholesky_ex + cholesky_solve {t_chol:.4f}")
+    return entries
+
+
 # ---------------------------------------------------------------------------
 # phases 4 and 5: the blind program
 # ---------------------------------------------------------------------------
-def load_degraded(n_utt: int, length: int):
+def load_wavs(kind: str, n_utt: int, length: int):
+    """The first ``length`` samples of quality_out_heldout/<kind>_utt0..n-1.wav, (n, 1, length)."""
     import numpy as np
     from buddy_tpu_torch.data.audio_io import read_wav
     ys = []
     for i in range(n_utt):
-        y, sr = read_wav(os.path.join(REPO, "quality_out_heldout", f"degraded_utt{i}.wav"))
+        y, sr = read_wav(os.path.join(REPO, "quality_out_heldout", f"{kind}_utt{i}.wav"))
         if sr != 16000 or len(y) < length:
-            raise ValueError(f"degraded_utt{i}.wav: {len(y)} samples at {sr} Hz")
+            raise ValueError(f"{kind}_utt{i}.wav: {len(y)} samples at {sr} Hz")
         ys.append(y[:length])
     return np.stack(ys)[:, None].astype(np.float32)
+
+
+def write_paired_set(root: str, utterances, seed: int) -> str:
+    """A test set in ``VCTKTestPaired``'s layout under ``root``: one clean
+    WAV per row of ``utterances`` and one RIR each, exponentially decaying
+    Gaussian noise (T60 drawn from 0.4-0.8 s, 16 kHz) behind a unit direct
+    path, made with numpy from ``seed``."""
+    import numpy as np
+    from buddy_tpu_torch.data.audio_io import write_wav
+    shutil.rmtree(root, ignore_errors=True)
+    rng = np.random.default_rng(seed)
+    for i, clean in enumerate(utterances):
+        t60 = rng.uniform(0.4, 0.8)
+        t = np.arange(int(t60 * 16000)) / 16000.0
+        rir = 0.1 * rng.standard_normal(len(t)) * np.exp(-6.908 * t / t60)
+        rir[0] = 1.0
+        for sub, data in (("clean", clean), ("rir", rir)):
+            os.makedirs(os.path.join(root, sub, "p226"), exist_ok=True)
+            write_wav(os.path.join(root, sub, "p226", f"utt{i}.wav"),
+                      np.asarray(data, np.float32), 16000)
+    return root
+
+
+def build_tester(dev, tester: str, data_root: str, run_name: str, overrides, seed: int = 0):
+    """compose -> network (random weights from ``seed``) -> test set -> Tester,
+    as ``python -m buddy_tpu_torch.testing`` builds them."""
+    from buddy_tpu_torch.config import compose, instantiate
+    from buddy_tpu_torch.models import NetworkBundle
+    from buddy_tpu_torch.testing.tester import Tester
+    args = compose("conf_VCTK.yaml", [
+        f"tester={tester}", "dset=vctk_16k_4s_test-benchmark", f"dset.test.path={data_root}",
+        'dset.test.speakers_test=["p226"]', f"model_dir={os.path.join(OUT_DIR, 'smoke_runs')}",
+        f"tester.overriden_name={run_name}", "tester.evaluate.use=True", *overrides])
+    os.makedirs(args["model_dir"], exist_ok=True)
+    shutil.rmtree(os.path.join(args["model_dir"], run_name), ignore_errors=True)
+    net = NetworkBundle(instantiate(args["network"], device=dev, seed=seed))
+    tester_obj = Tester(args, net, instantiate(args["diff_params"]),
+                        instantiate(args["dset"]["test"]), device=dev)
+    return args, net, tester_obj
+
+
+def check_outputs(tester, mode: str, n_items: int, length: int, blind: bool) -> None:
+    """The mode's WAV sets: ``n_items`` finite files per directory, the audio
+    ones of ``length`` samples; metrics.jsonl with one line per item."""
+    import numpy as np
+    from buddy_tpu_torch.data.audio_io import read_wav
+    base = tester.paths[mode]
+    subs = ["original", "degraded", "reconstructed", "true_rir"] + (["estimated_rir"] if blind else [])
+    for sub in subs:
+        files = sorted(os.listdir(os.path.join(base, sub)))
+        if len(files) != n_items:
+            raise AssertionError(f"{mode}/{sub}: {len(files)} files, expected {n_items}")
+        for f in files:
+            wav, sr = read_wav(os.path.join(base, sub, f))
+            audio = sub in ("original", "degraded", "reconstructed")
+            if sr != 16000 or not np.isfinite(wav).all() or len(wav) == 0 or \
+                    (audio and len(wav) != length) or float(np.abs(wav).max()) == 0.0:
+                raise AssertionError(f"{mode}/{sub}/{f}: {len(wav)} samples, finite="
+                                     f"{bool(np.isfinite(wav).all())}")
+    with open(os.path.join(base, "metrics.jsonl")) as f:
+        lines = [json.loads(ln) for ln in f]
+    if len(lines) != n_items or not all(np.isfinite(m["si_sdr"]) for m in lines):
+        raise AssertionError(f"{mode}/metrics.jsonl: {len(lines)} lines")
+
+
+_PORT_KERNELS = (
+    "gn_stats_kernel", "gn_apply_kernel", "gn_bwd_stats_kernel", "gn_bwd_apply_kernel",   # K1
+    "analysis_kernel", "synthesis_kernel",                                                # K2
+    "fir_kernel", "fir_dh_kernel",                                                        # K3
+    "compress_kernel", "compress_bwd_kernel", "comp_loss_fwd_kernel", "comp_loss_bwd_kernel",  # K4
+    "logmag_kernel", "window_kernel", "phasor_kernel", "real_crop_kernel",
+    "phasor_bwd_kernel", "mag_bwd_kernel",                                                # K5
+    "design_fwd_kernel", "design_bwd_point_kernel", "design_bwd_band_kernel",             # K6
+    "wpe_solve_kernel")                                                                   # K7
+
+
+def profile_main_path(run, n_steps: int) -> None:
+    """One more main-path run under torch.profiler: device ms per step of
+    each of the port's kernels (by exact function name) and of all other
+    kernels together, the count of kernel launches, and the device's busy
+    share of the wall time.  The full per-kernel table goes to
+    chiprun_out/profile_main_path.txt."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.self_device_time_total > 0 and e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(r[1] for r in rows)
+    ours = {k: 0.0 for k in _PORT_KERNELS}
+    ours_count = 0
+    for name, ms, count in rows:
+        fn = name.removeprefix("(anonymous namespace)::").split("(")[0]
+        if fn in ours:
+            ours[fn] += ms
+            ours_count += count
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with open(os.path.join(OUT_DIR, "profile_main_path.txt"), "w") as f:
+        for name, ms, count in sorted(rows, key=lambda r: -r[1]):
+            f.write(f"{ms:12.3f} ms {count:8d}x  {name}\n")
+    per_step = {k: round(v / n_steps, 3) for k, v in ours.items()}
+    per_step["other kernels"] = round((busy - sum(ours.values())) / n_steps, 3)
+    total = sum(r[2] for r in rows)
+    log(f"profile (main path through the tester, {n_steps} steps, profiler on): wall "
+        f"{wall * 1e3:.1f} ms, device busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}%), idle "
+        f"{100 * (1 - busy / (wall * 1e3)):.1f}%; device kernel and copy launches {total} "
+        f"({total / n_steps:.0f} per step; {ours_count} of them the port's kernels); device ms "
+        f"per step: " + json.dumps(per_step))
+
+
+def main_path(dev, wrappers):
+    """Phase 4: ``Tester.do_test()`` in blind mode, one batch of 8, full width."""
+    import torch
+    data = write_paired_set(os.path.join(OUT_DIR, "smoke_data"),
+                            load_wavs("clean", 8, 65536)[:, 0], seed=11)
+    args, net, tester = build_tester(dev, "blind_dereverberation_BUDDy", data, "blind", [
+        f"tester.sampling_params.T={N_STEPS}",
+        "network.compute_dtype=bfloat16",
+        "tester.posterior_sampling.guidance_jacobian=full",
+        "tester.posterior_sampling.blind_hp.op_updates_per_step=10",
+        "tester.posterior_sampling.warm_initialization.mode=wpe_scaled",
+        "tester.batched.use=True", "tester.batched.batch_size=8"])
+    log(f"main path: Tester.do_test(), blind, batched; NCSN++ nf={args['network']['nf']} "
+        f"ch_mult={list(args['network']['ch_mult'])} ({net.num_params / 1e6:.2f} M params, bf16 "
+        f"body), B=8 x 65536 samples, T={tester.sampler.T} steps, 10 operator updates/step, "
+        f"full guidance, WPE warm init")
+    sampler_s = []
+    inner = tester.sampler.predict_conditional_batched
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*a, **k)
+        torch.cuda.synchronize()
+        sampler_s.append(time.perf_counter() - t0)
+        return out
+
+    tester.sampler.predict_conditional_batched = timed
+
+    def run():
+        shutil.rmtree(os.path.join(args["model_dir"], "blind"), ignore_errors=True)
+        tester.do_test()
+        torch.cuda.synchronize()
+
+    t0 = time.perf_counter()
+    run()                                           # cold: Triton/cuDNN first launches
+    cold = time.perf_counter() - t0
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    run()
+    wall = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in wrappers.items()}
+    check_outputs(tester, "blind_dereverberation", 8, 65536, blind=True)
+    missing = [k for k, v in launches.items() if v == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the main path: {missing}")
+    T = tester.sampler.T
+    log(f"main path: 5 directories x 8 finite WAVs, metrics.jsonl 8 lines; do_test wall "
+        f"{wall:.3f} s (test-set preparation, sampler, WAVs and metrics), of which the sampler "
+        f"{sampler_s[-1]:.3f} s for {T} steps incl. WPE warm init ({sampler_s[-1] / T * 1e3:.1f} "
+        f"ms/step), cold run {cold:.3f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log("main path launches: " + json.dumps(launches))
+    profile_main_path(run, T)
+    return launches, wall
+
+
+def other_modes(dev) -> None:
+    """Phase 5: informed and unconditional at full width, the chunked path
+    at a small network, and the CLI as a subprocess."""
+    import numpy as np
+    import torch
+    data = os.path.join(OUT_DIR, "smoke_data")
+    wide = ["tester.sampling_params.T=2", "network.compute_dtype=bfloat16"]
+
+    t0 = time.perf_counter()
+    _, _, tester = build_tester(dev, "informed_dereverberation_DPS", data, "informed",
+                                wide + ["dset.test.num_examples=2"])
+    tester.do_test()
+    check_outputs(tester, "informed_dereverberation", 2, 65536, blind=False)
+    log(f"informed dereverberation (serial, RIR operator, 2 items x 65536, full width, T=2): "
+        f"4 directories x 2 finite WAVs in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    _, _, tester = build_tester(dev, "only_unconditional", data, "unconditional",
+                                wide + ["tester.unconditional.num_samples=2",
+                                        "tester.unconditional.audio_len=65536"])
+    preds = tester.do_test()
+    files = sorted(f for f in os.listdir(tester.paths["unconditional"]) if f.endswith(".wav"))
+    if preds.shape != (2, 65536) or not np.isfinite(preds).all() or len(files) != 2:
+        raise AssertionError(f"unconditional: {preds.shape}, files {files}")
+    log(f"unconditional (2 samples x 65536, full width, T=2): finite, std "
+        f"{float(preds.std()):.4g}, 2 WAVs in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    long_utt = load_wavs("clean", 3, 65536)[:, 0].reshape(1, -1)           # 196608 samples
+    long_data = write_paired_set(os.path.join(OUT_DIR, "smoke_data_long"), long_utt, seed=12)
+    small = ["network.nf=16", "network.ch_mult=[1,2,2,2]", "tester.sampling_params.T=2",
+             "tester.posterior_sampling.blind_hp.op_updates_per_step=2"]
+    _, _, tester = build_tester(dev, "blind_dereverberation_BUDDy", long_data, "chunked", small + [
+        "tester.chunked.threshold=65536", "tester.chunked.chunk_size=65536",
+        "tester.chunked.overlap=8192"])
+    calls = []
+    inner = tester.sampler.predict_conditional
+    tester.sampler.predict_conditional = lambda *a, **k: calls.append(k["blind"]) or inner(*a, **k)
+    tester.do_test()
+    check_outputs(tester, "blind_dereverberation", 1, 196608, blind=True)
+    if calls != [True, False, False, False]:
+        raise AssertionError(f"chunked path: blind flags {calls}")
+    log(f"chunked path (1 item x 196608 samples, 4 chunks of 65536 with 8192 overlap, blind "
+        f"on the first chunk only, nf=16): finite WAVs in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    shutil.rmtree(os.path.join(OUT_DIR, "smoke_runs", "cli"), ignore_errors=True)
+    cmd = [sys.executable, "-m", "buddy_tpu_torch.testing", "--config-name=conf_VCTK.yaml",
+           "tester=blind_dereverberation_BUDDy", f"tester.checkpoint={TINY_CKPT}", *TINY_CKPT_NET,
+           "dset=vctk_16k_4s_test-benchmark", f"dset.test.path={data}",
+           'dset.test.speakers_test=["p226"]', "dset.test.num_examples=2",
+           "tester.sampling_params.T=2", "tester.posterior_sampling.blind_hp.op_updates_per_step=2",
+           "tester.batched.use=True", "tester.batched.batch_size=2", "tester.overriden_name=cli",
+           f"model_dir={os.path.join(OUT_DIR, 'smoke_runs')}", "+gpu=0"]
+    run = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    if run.returncode != 0:
+        raise AssertionError(f"CLI exited with {run.returncode}:\n{run.stdout[-2000:]}\n"
+                             f"{run.stderr[-4000:]}")
+    if "Test options:" not in run.stdout or "(it=7)" not in run.stdout:
+        raise AssertionError(f"CLI output lacks the header or the checkpoint line:\n{run.stdout}")
+    # the CLI run keeps the shipped config's default: no metrics file
+    base = os.path.join(OUT_DIR, "smoke_runs", "cli", "blind_dereverberation", "VCTK_16k_4s_time")
+    for sub in ("original", "degraded", "reconstructed", "true_rir", "estimated_rir"):
+        files = os.listdir(os.path.join(base, sub))
+        if len(files) != 2:
+            raise AssertionError(f"CLI: {sub} holds {files}")
+    from buddy_tpu_torch.data.audio_io import read_wav
+    rec = read_wav(os.path.join(base, "reconstructed", "utt0.wav"))[0]
+    if len(rec) != 65536 or not np.isfinite(rec).all():
+        raise AssertionError("CLI: reconstructed/utt0.wav is not 65536 finite samples")
+    log(f"CLI (python -m buddy_tpu_torch.testing, blind, batched, 2 items, nf=8 with the "
+        f"checkpoint the JAX package wrote): exit 0, 5 WAV sets in {time.perf_counter() - t0:.1f} s")
 
 
 def build_program(overrides, dev, seed: int = 0):
@@ -280,87 +767,7 @@ def build_program(overrides, dev, seed: int = 0):
                           args, device=dev)
     op = BlindSubbandFiltering(args["tester"]["informed_dereverberation"]["op_hp"],
                                sample_rate=16000, device=dev)
-    return args, net, sampler, op
-
-
-_PORT_KERNELS = ("gn_stats_kernel", "gn_apply_kernel", "gn_bwd_stats_kernel",
-                 "gn_bwd_apply_kernel", "analysis_kernel", "synthesis_kernel", "fir_kernel",
-                 "fir_dh_kernel")                 # the device functions of K1, K2, K3
-
-
-def profile_main_path(run, n_steps: int) -> None:
-    """One more main-path run under torch.profiler: device ms per step of
-    each of the port's kernels (by exact function name) and of all other
-    kernels together, and the device's busy share of the wall time.  The
-    full per-kernel table goes to chiprun_out/profile_main_path.txt."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        wall = time.perf_counter() - t0
-    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.self_device_time_total > 0 and e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(r[1] for r in rows)
-    ours = {k: 0.0 for k in _PORT_KERNELS}
-    for name, ms, _ in rows:
-        fn = name.removeprefix("(anonymous namespace)::").split("(")[0]
-        if fn in ours:
-            ours[fn] += ms
-    os.makedirs(os.path.join(REPO, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(REPO, "chiprun_out", "profile_main_path.txt"), "w") as f:
-        for name, ms, count in sorted(rows, key=lambda r: -r[1]):
-            f.write(f"{ms:12.3f} ms {count:8d}x  {name}\n")
-    per_step = {k: round(v / n_steps, 3) for k, v in ours.items()}
-    per_step["other kernels"] = round((busy - sum(ours.values())) / n_steps, 3)
-    log(f"profile (main path, {n_steps} steps, profiler on): wall {wall * 1e3:.1f} ms, device "
-        f"busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}%), idle "
-        f"{100 * (1 - busy / (wall * 1e3)):.1f}%; device ms per step: " + json.dumps(per_step))
-
-
-def main_path(dev, wrappers):
-    import torch
-    args, net, sampler, op = build_program([
-        f"tester.sampling_params.T={N_STEPS}",
-        "network.compute_dtype=bfloat16",
-        "tester.posterior_sampling.guidance_jacobian=full",
-        "tester.posterior_sampling.blind_hp.op_updates_per_step=10",
-    ], dev)
-    log(f"main path: NCSN++ nf={args['network']['nf']} ch_mult={list(args['network']['ch_mult'])} "
-        f"({net.num_params / 1e6:.2f} M params, bf16 body), B=8 x 65536 samples, "
-        f"T={sampler.T} steps, 10 operator updates/step, full guidance")
-    ys = torch.from_numpy(load_degraded(8, 65536)).to(dev)
-    params, H = op.reset_batched(8, generator=torch.Generator(device=dev).manual_seed(3))
-
-    def run():
-        out = sampler.predict_conditional_batched(ys, op, blind=True, noise=sampler.default_noise(0),
-                                                  op_params_batch=params, H_batch=H)
-        torch.cuda.synchronize()
-        return out
-
-    t0 = time.perf_counter()
-    run()                                           # cold: Triton/cuDNN first launches
-    cold = time.perf_counter() - t0
-    for w in wrappers.values():
-        w.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    out = run()
-    wall = time.perf_counter() - t0
-    launches = {name: w.launches for name, w in wrappers.items()}
-    if tuple(out.shape) != (8, 1, 65536) or not bool(torch.isfinite(out).all()):
-        raise AssertionError(f"main path output {tuple(out.shape)} finite="
-                             f"{bool(torch.isfinite(out).all())}")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
-    log(f"main path: output {list(out.shape)} finite, std {float(out.std()):.4g}; wall "
-        f"{wall:.3f} s for {sampler.T} steps incl. WPE warm init ({wall / sampler.T * 1e3:.1f} "
-        f"ms/step), cold run {cold:.3f} s, peak memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log("main path launches: " + json.dumps(launches))
-    profile_main_path(run, sampler.T)
-    return launches, wall
+    return sampler, op
 
 
 def small_reference(dev):
@@ -371,10 +778,10 @@ def small_reference(dev):
     overrides = ["network.nf=16", "network.ch_mult=[1,2,2,2]", "tester.sampling_params.T=2",
                  "tester.posterior_sampling.blind_hp.op_updates_per_step=2",
                  "tester.posterior_sampling.warm_initialization.mode=reverb_scaled"]
-    ys = torch.from_numpy(load_degraded(2, 16384))
+    ys = torch.from_numpy(load_wavs("degraded", 2, 16384))
     outs = []
     for d in (dev, torch.device("cpu")):
-        _, _, sampler, op = build_program(overrides, d)
+        sampler, op = build_program(overrides, d)
         params, H = op.reset_batched(2, noise=torch.randn((2, op.length_rir),
                                                           generator=torch.Generator().manual_seed(4)))
         out = sampler.predict_conditional_batched(ys, op, blind=True, noise=NoiseSource(torch.Generator().manual_seed(5)),
@@ -399,7 +806,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     from buddy_tpu_torch.device import resolve_device
-    from buddy_tpu_torch.ops import _build, groupnorm as K1, stft as K2, subband_conv as K3
+    from buddy_tpu_torch.ops import (_build, filter_design as K6, groupnorm as K1, minphase as K5,
+                                     spec_loss as K4, stft as K2, subband_conv as K3,
+                                     wpe_solve as K7)
 
     dev = resolve_device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -424,6 +833,11 @@ def main() -> int:
         "stft_analysis": K2.stft_analysis, "stft_synthesis": K2.stft_synthesis,
         "subband_conv": K3.subband_conv, "subband_conv_adjoint": K3.subband_conv_adjoint,
         "subband_conv_filter_grad": K3.subband_conv_filter_grad,
+        "spec_compress_fwd": K4.spec_compress, "spec_compress_bwd": K4.spec_compress_backward,
+        "comp_loss_fwd": K4.comp_loss, "comp_loss_bwd": K4.comp_loss_backward,
+        "minphase_fwd": K5.minimum_phase_version, "minphase_bwd": K5.minimum_phase_backward,
+        "filter_design_fwd": K6.filter_design, "filter_design_bwd": K6.filter_design_backward,
+        "wpe_solve": K7.wpe_solve,
     }
     meta = {
         "groupnorm_silu_fwd": ("triton", "buddy_tpu_torch/csrc/groupnorm.py",
@@ -438,12 +852,32 @@ def main() -> int:
                                  "buddy_tpu/operators/subband.py:76"),
         "subband_conv_filter_grad": ("cuda", "buddy_tpu_torch/csrc/subband_conv.cu",
                                      "buddy_tpu/operators/subband.py:76"),
+        "spec_compress_fwd": ("triton", "buddy_tpu_torch/csrc/spec_loss.py",
+                              "buddy_tpu/losses.py:51"),
+        "spec_compress_bwd": ("triton", "buddy_tpu_torch/csrc/spec_loss.py",
+                              "buddy_tpu/losses.py:51"),
+        "comp_loss_fwd": ("triton", "buddy_tpu_torch/csrc/spec_loss.py",
+                          "buddy_tpu/losses.py:120"),
+        "comp_loss_bwd": ("triton", "buddy_tpu_torch/csrc/spec_loss.py",
+                          "buddy_tpu/losses.py:120"),
+        "minphase_fwd": ("triton", "buddy_tpu_torch/csrc/minphase.py",
+                         "buddy_tpu/ops/minphase.py:38"),
+        "minphase_bwd": ("triton", "buddy_tpu_torch/csrc/minphase.py",
+                         "buddy_tpu/ops/minphase.py:38"),
+        "filter_design_fwd": ("cuda", "buddy_tpu_torch/csrc/filter_design.cu",
+                              "buddy_tpu/operators/subband.py:341"),
+        "filter_design_bwd": ("cuda", "buddy_tpu_torch/csrc/filter_design.cu",
+                              "buddy_tpu/operators/subband.py:341"),
+        "wpe_solve": ("cuda", "buddy_tpu_torch/csrc/wpe_solve.cu",
+                      "buddy_tpu/sampling/wpe.py:61"),
     }
     t0 = time.perf_counter()
     checks = kernel_checks(dev)
+    checks.update(fused_kernel_checks(dev))
     log(f"kernel checks done in {time.perf_counter() - t0:.1f} s")
 
     launches, _ = main_path(dev, wrappers)
+    other_modes(dev)
     small_reference(dev)
 
     kernels = []
@@ -453,7 +887,8 @@ def main() -> int:
         kernels.append({"name": name, "route": route, "source": source, "replaces": replaces,
                         "launches": launches[name], "max_abs_err": c["err"], "tolerance": c["tol"],
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": c["bound"][0],
-                        "bound_by": c["bound"][1], "library_ms": lib_ms, "shape": c["shape"]})
+                        "bound_by": c["bound"][1], "library_ms": lib_ms, "shape": c["shape"],
+                        **c.get("extra", {})})
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -122,13 +122,16 @@ def jax_step_draws(rng, n_updates: int, x_shape, rir_len: int, reg: bool):
     return k, eps, regs
 
 
-def jax_program_draws(key, B: int, n: int, T: int, n_updates: int, rir_len: int, reg: bool):
+def jax_program_draws(key, B: int, n: int, T: int, n_updates: int, rir_len: int, reg: bool,
+                      split: bool = True):
     """All draws of JAX's ``predict_conditional_batched(rng=key)`` for B
     utterances (dps.py:357 split, :277 k_init, :224 k_eps, :150 k_reg),
-    stacked batch-first as the port's sampler asks for them."""
+    stacked batch-first as the port's sampler asks for them.  ``split=False``
+    gives the draws of the serial ``predict_conditional(rng=key)`` (B = 1,
+    the key is used as it is)."""
     per = [[] for _ in range(B)]
     inits = []
-    for b, rng in enumerate(jax.random.split(key, B)):
+    for b, rng in enumerate(jax.random.split(key, B) if split else [key]):
         rng, k_init = jax.random.split(rng)
         inits.append(np.asarray(jax.random.normal(k_init, (1, n))))
         for _ in range(T):
@@ -140,6 +143,62 @@ def jax_program_draws(key, B: int, n: int, T: int, n_updates: int, rir_len: int,
         for u in range(len(per[0][i][1])):
             draws["reg"].append(np.stack([per[b][i][1][u] for b in range(B)]))
     return draws
+
+
+def jax_unconditional_draws(key, shape, T: int):
+    """The draws of JAX's ``EulerHeunSampler.predict(shape, rng=key)``
+    (euler_heun.py:137 k_init, :103 k_eps)."""
+    rng, k_init = jax.random.split(key)
+    draws = {"init": [np.asarray(jax.random.normal(k_init, shape))], "eps": []}
+    for _ in range(T):
+        rng, k_eps = jax.random.split(rng)
+        draws["eps"].append(np.asarray(jax.random.normal(k_eps, shape, jnp.float32)))
+    return draws
+
+
+def jax_reset_noise(k_op, length: int, batch=None):
+    """The phase noise of JAX's operator reset: ``reset(k_op)`` (one
+    utterance, (1, length)) or ``reset_batched(k_op, batch)`` ((batch,
+    length), subband.py:453 split)."""
+    keys = [k_op] if batch is None else jax.random.split(k_op, batch)
+    return np.stack([np.asarray(jax.random.normal(k, (length,))) for k in keys])
+
+
+def merge_draws(*draws):
+    """Concatenate replay dictionaries in the order the port will ask."""
+    out: dict = {}
+    for d in draws:
+        for k, v in d.items():
+            out.setdefault(k, []).extend(v)
+    return out
+
+
+def jax_tester_draws(mode: str, n_items: int, n_pad: int, T: int, n_updates: int, rir_len: int,
+                     length_rir: int, *, batched: bool = False, samples: int = 1, seed: int = 42):
+    """The draws of the JAX ``Tester(rng=PRNGKey(seed)).do_test()`` for one
+    mode, as (sampler draws, reset draws) for the port's ``Tester.noise`` and
+    ``Tester.reset_noise``: unconditional (tester.py:83 split), serial
+    dereverberation per item (:364 k_op when blind, :374 k_pred) or one
+    batch of all items (:279 split in three)."""
+    rng = jax.random.PRNGKey(seed)
+    blind = mode == "blind_dereverberation"
+    if mode == "unconditional":
+        rng, k = jax.random.split(rng)
+        return jax_unconditional_draws(k, (samples, n_pad), T), {}
+    if batched:
+        rng, k_op, k_pred = jax.random.split(rng, 3)
+        resets = {"reset": [jax_reset_noise(k_op, length_rir, n_items)]} if blind else {}
+        return jax_program_draws(k_pred, n_items, n_pad, T, n_updates if blind else 0,
+                                 rir_len, reg=blind), resets
+    draws, resets = [], {"reset": []}
+    for _ in range(n_items):
+        if blind:
+            rng, k_op = jax.random.split(rng)
+            resets["reset"].append(jax_reset_noise(k_op, length_rir))
+        rng, k_pred = jax.random.split(rng)
+        draws.append(jax_program_draws(k_pred, 1, n_pad, T, n_updates if blind else 0, rir_len,
+                                       reg=blind, split=False))
+    return merge_draws(*draws), resets
 
 
 def to_torch(params):
@@ -182,8 +241,8 @@ def test_port_files_import_no_jax():
 
 def test_port_imports_with_jax_blocked():
     """Every module of the port imports in a process where jax, flax, optax
-    and buddy_tpu cannot be imported (the Triton kernel source is skipped:
-    it imports triton, which exists only beside the card)."""
+    and buddy_tpu cannot be imported (the Triton kernel sources under csrc/
+    are skipped: they import triton, which exists only beside the card)."""
     code = f"""
 import importlib, pkgutil, sys
 BLOCKED = {_FORBIDDEN!r}
@@ -198,7 +257,7 @@ sys.meta_path.insert(0, Block())
 import buddy_tpu_torch
 n = 0
 for m in pkgutil.walk_packages(buddy_tpu_torch.__path__, 'buddy_tpu_torch.'):
-    if m.name != 'buddy_tpu_torch.csrc.groupnorm':
+    if not m.name.startswith('buddy_tpu_torch.csrc.') and not m.name.endswith('__main__'):
         importlib.import_module(m.name)
         n += 1
 assert not [k for k in sys.modules if k.split('.')[0] in BLOCKED]
@@ -207,7 +266,7 @@ print('imported', n)
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-2000:]
-    assert int(out.stdout.split()[-1]) >= 20
+    assert int(out.stdout.split()[-1]) >= 35
 
 
 def test_entry_points_raise_without_cuda(monkeypatch):
@@ -245,3 +304,35 @@ def test_kernel_wrappers_refuse_cpu_fallback_for_cuda_inputs():
     with pytest.raises((ValueError, RuntimeError, ImportError)):
         subband_conv.subband_conv(torch.empty((1, 3, 5), dtype=torch.complex64, device="meta"),
                                   torch.empty((1, 3, 2), dtype=torch.complex64, device="meta"), 1)
+
+
+def test_public_entry_points_default_to_no_device():
+    """Every public class and function of the package whose signature has a
+    ``device`` parameter defaults it to None, so that ``resolve_device``
+    picks the card or raises: nothing defaults to the CPU."""
+    import importlib
+    import inspect
+    import pkgutil
+    import buddy_tpu_torch
+    seen, offenders = 0, []
+    for m in pkgutil.walk_packages(buddy_tpu_torch.__path__, "buddy_tpu_torch."):
+        if m.name.startswith("buddy_tpu_torch.csrc.") or m.name.endswith("__main__"):
+            continue
+        module = importlib.import_module(m.name)
+        for name, obj in vars(module).items():
+            if name.startswith("_") or getattr(obj, "__module__", None) != m.name:
+                continue
+            if not (inspect.isclass(obj) or inspect.isfunction(obj)):
+                continue
+            targets = [obj] + [f for n, f in vars(obj).items()
+                               if inspect.isfunction(f) and not n.startswith("_")] \
+                if inspect.isclass(obj) else [obj]
+            for t in targets:
+                device = inspect.signature(t).parameters.get("device")
+                if device is None:
+                    continue
+                seen += 1
+                if device.default not in (None, inspect.Parameter.empty):
+                    offenders.append(f"{m.name}.{getattr(t, '__qualname__', name)}")
+    assert not offenders, offenders
+    assert seen >= 8

@@ -32,7 +32,7 @@ def _window(n_fft, kind):
 def _geometry(name):
     from buddy_tpu_torch.ops.stft import STFT
     n_fft, hop, kind, mode = GEOMETRIES[name]
-    return STFT(n_fft, hop, _window(n_fft, kind), pad_mode=mode), n_fft, hop, kind, mode
+    return STFT(n_fft, hop, _window(n_fft, kind), pad_mode=mode, device="cpu"), n_fft, hop, kind, mode
 
 
 @pytest.mark.parametrize("name", sorted(GEOMETRIES))
