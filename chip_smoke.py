@@ -9,21 +9,24 @@ Phases, each printing one line:
 2. building the CUDA kernels (K2, K3, K6, K7) from ``buddy_tpu_torch/csrc``
    with nvcc, one process per source, all at once (the Triton kernels K1,
    K4, K5 compile at their first launch, in phase 3);
-3. each kernel at the main path's shapes and dtypes (K2 at its three
-   geometries: operator, model, WPE; K4 at the loss's and the RIR
-   regulariser's shape and in its three reductions), forward and backward,
-   against its plain PyTorch version on the same inputs, with the stated
-   tolerance, and timed beside its plain version and a PyTorch library call
-   where one computes the same function (the yardstick; the port never
-   calls it);
+3. each kernel at the main path's shapes and dtypes (K2 at its four
+   geometries: operator, model, WPE and the operator's short `cons`
+   spectra, with its synthesis compared bit for bit between two calls and
+   its device time per launch from the profiler; K4 at the loss's and the
+   RIR regulariser's shape and in its three reductions), forward and
+   backward, against its plain PyTorch version on the same inputs, with the
+   stated tolerance, and timed beside its plain version and a PyTorch
+   library call where one computes the same function (the yardstick; the
+   port never calls it);
 4. the main path, through the tester: a paired test set (the 8 in-repo clean
    utterances of 65536 samples, 8 RIRs made from a seed) is written under
    chiprun_out/, and ``Tester.do_test()`` runs blind BUDDy dereverberation
    of it as one batch with the full-width network of
    conf/network/ncsnpp.yaml (random weights from a seed, bf16 body), full
    guidance, 10 operator updates per step, WPE warm init, T cut to 4 steps;
-   every kernel's launch count must be > 0 and the five output directories
-   must hold 8 finite WAVs each; then one more run under torch.profiler:
+   every kernel's launch count must be > 0 (K2's are also logged by
+   n_fft) and the five output directories must hold 8 finite WAVs each;
+   then one more run under torch.profiler:
    device time of each of the port's kernels and of the rest, the count of
    kernel launches, and the device's idle share (the per-kernel table goes
    to chiprun_out/);
@@ -94,6 +97,64 @@ def check(name: str, err: float, tol: float) -> None:
         raise AssertionError(f"{name}: max abs error {err:.3e} exceeds tolerance {tol:.3e}")
 
 
+def kernel_name(key: str) -> str:
+    """A profiler key reduced to the kernel's function name (no return
+    type, namespace, template arguments or parameters)."""
+    key = key.removeprefix("void ").replace("(anonymous namespace)::", "")
+    return key.split("(")[0].split("<")[0]
+
+
+def profile_device_us(fn, reps: int = 20) -> dict:
+    """{kernel name: [device us, launches]} over ``reps`` calls of fn()
+    under torch.profiler (after one call outside it)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    found = {}
+    for e in prof.key_averages():
+        if e.self_device_time_total > 0:
+            f = found.setdefault(kernel_name(e.key), [0.0, 0])
+            f[0] += e.self_device_time_total
+            f[1] += e.count
+    return found
+
+
+def device_us_per_launch(fn, names, reps: int = 20) -> dict:
+    """Device us per launch of each kernel in ``names`` over ``reps`` calls of fn()."""
+    found = profile_device_us(fn, reps)
+    missing = [k for k in names if k not in found]
+    if missing:
+        raise AssertionError(f"profile shows no launch of {missing}")
+    return {k: found[k][0] / found[k][1] for k in names}
+
+
+def device_us_per_call(fn, reps: int = 20) -> float:
+    """Device us of all the kernels of one call of fn()."""
+    return sum(t for t, _ in profile_device_us(fn, reps).values()) / reps
+
+
+def synthesis_basis(plan):
+    """The window-folded inverse-DFT basis of an STFT plan as a
+    conv_transpose1d weight (2F, 1, taps * hop): row f (f + F) holds
+    w[s] * c_f * cos (-sin) (2 pi f s / n) with the ISTFT's weights c_f."""
+    import numpy as np
+    import torch
+    n, F_ = plan.n_fft, plan.n_bins
+    rows = plan.taps * plan.hop
+    s = np.arange(rows)
+    w = np.zeros(rows)
+    w[:plan.support] = plan.window.cpu().numpy()
+    c = plan.istft_weights.cpu().numpy().astype(np.float64)
+    ang = 2.0 * np.pi * np.arange(F_)[:, None] * s[None, :] / n
+    basis = np.concatenate([np.cos(ang), -np.sin(ang)]) * np.concatenate([c, c])[:, None] * w
+    return torch.as_tensor(basis[:, None, :].astype(np.float32))
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -157,76 +218,105 @@ def kernel_checks(dev):
                 err=err_b, tol=tol_b, times=t_bwd, shape=shape, bound=bound_ms(6 * n, 20 * n))
     log(f"kernel K1 groupnorm+silu: fwd/bwd match the plain version at {gn_shapes}")
 
-    # --- K2 STFT / ISTFT at the main path's three geometries -----------------
+    # --- K2 STFT / ISTFT at the main path's geometries -------------------------
     # operator: 1024/128, hann(512) right-padded, constant, on apply_stft's
     # win_length-right-padded signal; model: 510/128 reflect, the synthesis
-    # at the 528 frames of pad_spec_frames; WPE warm init: 512/128 constant
+    # at the 528 frames of pad_spec_frames; WPE warm init: 512/128 constant;
+    # cons: the operator geometry on the 12928-sample RIR, 102 frames, where
+    # the kernels cut their tiles smaller to fill the card
+    op_window = np.pad(hann_window(512), (0, 512))
     geometries = {
-        "operator": (1024, np.pad(hann_window(512), (0, 512)), "constant", 65536 + 512, None),
+        "operator": (1024, op_window, "constant", 65536 + 512, None),
         "model": (510, hann_window(510), "reflect", 65536, 528),
         "wpe": (512, hann_window(512), "constant", 65536, None),
+        "cons": (1024, op_window, "constant", 12928, None),
     }
+    k2_names = ("stft_analysis_kernel", "stft_synthesis_kernel")
     for gname, (n_fft, window, pad_mode, length, frames) in geometries.items():
         geom = STFT(n_fft, 128, window, pad_mode=pad_mode, device=dev)
+        plan = geom.plan
         wt = torch.as_tensor(window, device=dev)
         x = rand(8, length)
         blocks, T = geom.frame_blocks(x)
-        spec_k = K2.stft_analysis(blocks, geom.A, geom.A_adj, T)
-        spec_a = K2.analysis_plain(blocks, geom.A, T).contiguous()
-        tol_a = 1e-4 * float(spec_a.abs().max())   # float32 sums of ~512 products
+        spec_k = K2.stft_analysis(blocks, plan, T)
+        spec_a = K2.analysis_plain(blocks, plan, T, plan.ones).contiguous()
+        tol_a = 1e-4 * float(spec_a.abs().max())   # float32 FFTs of n_fft points, two orders
         err_a = max_err(torch.view_as_real(spec_k), torch.view_as_real(spec_a))
         check(f"stft_analysis {gname}", err_a, tol_a)
         spec = F.pad(spec_a, (0, frames - T)) if frames else spec_a
-        y_k = K2.stft_synthesis(spec, geom.V, geom.V_adj)
-        y_p = K2.synthesis_plain(spec, geom.V)
-        tol_s = 1e-4 * float(y_p.abs().max())      # float32 sums of 4 x 2F products
+        y_k = K2.stft_synthesis(spec, plan)
+        y_p = K2.synthesis_plain(spec, plan, plan.istft_weights)
+        tol_s = 1e-4 * float(y_p.abs().max())
         err_s = max_err(y_k, y_p)
         check(f"stft_synthesis {gname}", err_s, tol_s)
-        # backward: each kernel's adjoint is the other kernel, against autograd of the plain
+        if not torch.equal(y_k, K2.stft_synthesis(spec, plan)):
+            raise AssertionError(f"stft_synthesis {gname}: two calls differ")
+        # backward: each kernel's adjoint is the other kernel, against autograd
+        # through the plain version's torch.fft ops
         gspec = crand(*spec_a.shape)
         bk, bp = blocks.detach().requires_grad_(True), blocks.detach().requires_grad_(True)
-        K2.stft_analysis(bk, geom.A, geom.A_adj, T).backward(gspec)
-        K2.analysis_plain(bp, geom.A, T).backward(gspec)
+        K2.stft_analysis(bk, plan, T).backward(gspec)
+        K2.analysis_plain(bp, plan, T, plan.ones).backward(gspec)
         err_ab = max_err(bk.grad, bp.grad)
         check(f"stft_analysis bwd {gname}", err_ab, 1e-4 * float(bp.grad.abs().max()))
         gy = rand(*y_p.shape)
         sk, sp = spec.detach().requires_grad_(True), spec.detach().requires_grad_(True)
-        K2.stft_synthesis(sk, geom.V, geom.V_adj).backward(gy)
-        K2.synthesis_plain(sp, geom.V).backward(gy)
+        K2.stft_synthesis(sk, plan).backward(gy)
+        K2.synthesis_plain(sp, plan, plan.istft_weights).backward(gy)
         err_sb = max_err(torch.view_as_real(sk.grad), torch.view_as_real(sp.grad))
         check(f"stft_synthesis bwd {gname}", err_sb, 1e-4 * float(sp.grad.abs().max()))
         # the synthesis's library call: the transposed conv over hop-blocks
-        # that the TPU's _istft_conv is built on, with V as its weight
+        # that the TPU's _istft_conv is built on, with the window-folded
+        # inverse-DFT basis as its weight
         z = torch.cat([spec.real, spec.imag], 1).contiguous()            # (N, 2F, T)
-        wct = geom.V.permute(1, 0, 2).reshape(2 * geom.n_bins, 1, -1).contiguous()
-        conv_t = lambda: F.conv_transpose1d(z, wct, stride=geom.hop)
+        wct = synthesis_basis(plan).to(dev)
+        conv_t = lambda: F.conv_transpose1d(z, wct, stride=plan.hop)
         check(f"stft_synthesis {gname} (library)", max_err(conv_t()[:, 0], y_p),
               1e-3 * float(y_p.abs().max()))
         with torch.no_grad():
-            t_a = (cuda_ms(lambda: K2.stft_analysis(blocks, geom.A, geom.A_adj, T)),
-                   cuda_ms(lambda: K2.analysis_plain(blocks, geom.A, T)),
+            t_a = (cuda_ms(lambda: K2.stft_analysis(blocks, plan, T)),
+                   cuda_ms(lambda: K2.analysis_plain(blocks, plan, T, plan.ones)),
                    cuda_ms(lambda: torch.stft(x, n_fft, 128, window=wt, center=True,
                                               pad_mode=pad_mode, return_complex=True)))
-            t_s = (cuda_ms(lambda: K2.stft_synthesis(spec, geom.V, geom.V_adj)),
-                   cuda_ms(lambda: K2.synthesis_plain(spec, geom.V)), cuda_ms(conv_t))
+            t_s = (cuda_ms(lambda: K2.stft_synthesis(spec, plan)),
+                   cuda_ms(lambda: K2.synthesis_plain(spec, plan, plan.istft_weights)),
+                   cuda_ms(conv_t))
             # torch.istft refuses the operator's half-zero window (its
-            # overlap-add check), so it is timed at the other two geometries
-            t_istft = None if gname == "operator" else cuda_ms(
+            # overlap-add check), so it is timed at the model and WPE geometries
+            t_istft = None if n_fft == 1024 else cuda_ms(
                 lambda: torch.istft(spec, n_fft, 128, window=wt, center=True, length=length))
-        flops = 2.0 * 8 * T * 2 * geom.n_bins * geom.taps * geom.hop
+            dev_us = device_us_per_launch(
+                lambda: (K2.stft_analysis(blocks, plan, T), K2.stft_synthesis(spec, plan)),
+                k2_names)
+            lib_us = (device_us_per_call(lambda: torch.stft(x, n_fft, 128, window=wt, center=True,
+                                                            pad_mode=pad_mode, return_complex=True)),
+                      device_us_per_call(conv_t))
+        # the least time for the same work: the signal read and the spectrum
+        # written once, against a real FFT's 2.5 n log2 n operations per frame
+        fft_flops = 2.5 * n_fft * np.log2(n_fft) * blocks.shape[0]
+        b_a = bound_ms(4 * blocks.numel() + 8 * spec_a.numel(), fft_flops * T)
+        b_s = bound_ms(8 * spec.numel() + 4 * y_p.numel(), fft_flops * spec.shape[-1])
+        us_a, us_s = dev_us["stft_analysis_kernel"], dev_us["stft_synthesis_kernel"]
         log(f"kernel K2 stft, {gname} geometry ({n_fft}/128, {pad_mode}): blocks "
             f"{list(blocks.shape)} -> spec {list(spec.shape)}; max abs err fwd {err_a:.3e}/{err_s:.3e} "
-            f"bwd {err_ab:.3e}/{err_sb:.3e} (analysis/synthesis; tolerance 1e-4 of the peak); ms "
-            f"kernel/plain/library: analysis {[round(t, 4) for t in t_a]} (torch.stft), synthesis "
-            f"{[round(t, 4) for t in t_s]} (conv_transpose1d), torch.istft "
-            f"{'refused' if t_istft is None else round(t_istft, 4)}")
+            f"bwd {err_ab:.3e}/{err_sb:.3e} (analysis/synthesis; tolerance 1e-4 of the peak); "
+            f"synthesis bit-identical between two calls; ms kernel/plain/library: analysis "
+            f"{[round(t, 4) for t in t_a]} (torch.stft), synthesis {[round(t, 4) for t in t_s]} "
+            f"(conv_transpose1d), torch.istft {'refused' if t_istft is None else round(t_istft, 4)}; "
+            f"device us per launch (profile) analysis {us_a:.1f}, synthesis {us_s:.1f}; bound ms "
+            f"analysis {b_a[0]:.4f} ({b_a[1]}), synthesis {b_s[0]:.4f} ({b_s[1]}); device time / "
+            f"bound: analysis {us_a / 1e3 / b_a[0]:.2f}, synthesis {us_s / 1e3 / b_s[0]:.2f}; "
+            f"device time / library ms: analysis {us_a / 1e3 / t_a[2]:.2f}, synthesis "
+            f"{us_s / 1e3 / t_s[2]:.2f}; library device us per call: torch.stft {lib_us[0]:.1f}, "
+            f"conv_transpose1d {lib_us[1]:.1f}; device time / library device time: analysis "
+            f"{us_a / lib_us[0]:.2f}, synthesis {us_s / lib_us[1]:.2f}")
         if gname == "operator":                    # the kernels line reports this geometry
-            entries["stft_analysis"] = dict(
-                err=err_a, tol=tol_a, shape=list(blocks.shape), times=t_a,
-                bound=bound_ms(4 * blocks.numel() + 4 * geom.A.numel() + 8 * spec_a.numel(), flops))
-            entries["stft_synthesis"] = dict(
-                err=err_s, tol=tol_s, shape=list(spec.shape), times=t_s,
-                bound=bound_ms(8 * spec.numel() + 4 * geom.V.numel() + 4 * y_p.numel(), flops))
+            entries["stft_analysis"] = dict(err=err_a, tol=tol_a, shape=list(blocks.shape),
+                                            times=t_a, bound=b_a, extra={
+                                                "device_us": us_a, "library_device_us": lib_us[0]})
+            entries["stft_synthesis"] = dict(err=err_s, tol=tol_s, shape=list(spec.shape),
+                                             times=t_s, bound=b_s, extra={
+                                                 "device_us": us_s, "library_device_us": lib_us[1]})
 
     # --- K3 subband convolution (B=8, F=513, T=517, Nf=100, pre=1) ----------------
     Bn, Fb, Tf, Nf, pre = 8, 513, 517, 100, 1      # Tf: the operator geometry's frames
@@ -579,7 +669,7 @@ def check_outputs(tester, mode: str, n_items: int, length: int, blind: bool) -> 
 
 _PORT_KERNELS = (
     "gn_stats_kernel", "gn_apply_kernel", "gn_bwd_stats_kernel", "gn_bwd_apply_kernel",   # K1
-    "analysis_kernel", "synthesis_kernel",                                                # K2
+    "stft_analysis_kernel", "stft_synthesis_kernel",                                      # K2
     "fir_kernel", "fir_dh_kernel",                                                        # K3
     "compress_kernel", "compress_bwd_kernel", "comp_loss_fwd_kernel", "comp_loss_bwd_kernel",  # K4
     "logmag_kernel", "window_kernel", "phasor_kernel", "real_crop_kernel",
@@ -606,7 +696,7 @@ def profile_main_path(run, n_steps: int) -> None:
     ours = {k: 0.0 for k in _PORT_KERNELS}
     ours_count = 0
     for name, ms, count in rows:
-        fn = name.removeprefix("(anonymous namespace)::").split("(")[0]
+        fn = kernel_name(name)
         if fn in ours:
             ours[fn] += ms
             ours_count += count
@@ -663,6 +753,8 @@ def main_path(dev, wrappers):
     cold = time.perf_counter() - t0
     for w in wrappers.values():
         w.launches = 0
+    for name in ("stft_analysis", "stft_synthesis"):
+        wrappers[name].by_n_fft.clear()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     run()
@@ -679,6 +771,10 @@ def main_path(dev, wrappers):
         f"ms/step), cold run {cold:.3f} s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log("main path launches: " + json.dumps(launches))
+    log(f"main path K2 launches by n_fft (total; per step of {T}, the batch's one-off "
+        f"launches included): " + json.dumps({
+            name: {n: [c, round(c / T, 2)] for n, c in sorted(wrappers[name].by_n_fft.items())}
+            for name in ("stft_analysis", "stft_synthesis")}))
     profile_main_path(run, T)
     return launches, wall
 

@@ -299,8 +299,10 @@ def test_kernel_wrappers_refuse_cpu_fallback_for_cuda_inputs():
                                  torch.zeros(4, device="meta"), 1)
     with pytest.raises((ValueError, RuntimeError, ImportError)):
         stft.stft_analysis(torch.empty((1, 8, 4), device="meta"),
-                           torch.empty((2, 4, 6), device="meta"),
-                           torch.empty((2, 6, 4), device="meta"), 7)
+                           stft.StftPlan(8, 4, stft.hann_window(8), device="cpu"), 5)
+    with pytest.raises((ValueError, RuntimeError, ImportError)):
+        stft.stft_synthesis(torch.empty((1, 5, 5), dtype=torch.complex64, device="meta"),
+                            stft.StftPlan(8, 4, stft.hann_window(8), device="cpu"))
     with pytest.raises((ValueError, RuntimeError, ImportError)):
         subband_conv.subband_conv(torch.empty((1, 3, 5), dtype=torch.complex64, device="meta"),
                                   torch.empty((1, 3, 2), dtype=torch.complex64, device="meta"), 1)

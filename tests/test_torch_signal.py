@@ -3,7 +3,7 @@ package: K2 STFT/ISTFT at the three geometries of the main path, K3 subband
 convolution, K1 GroupNorm(+SiLU), and the minimum-phase chain.
 
 Tolerances: both sides compute in float32 and sum in different orders (the
-port's tap sums against JAX's FFTs), so values agree to a few float32 ulps
+port's torch.fft frames against JAX's FFTs), so values agree to a few float32 ulps
 of the largest output, stated per test.
 """
 
