@@ -4,11 +4,13 @@ A port of the JAX package ``buddy_tpu`` (which stays in the repository as the
 reference).  Plain tensor code is PyTorch; the hot ops that the JAX package
 shaped by hand for the TPU are kernels written by hand for the H100:
 
-* K1 GroupNorm(+SiLU), forward and backward, Triton (``ops/groupnorm.py``);
+* K1 GroupNorm(+SiLU), forward and backward, CUDA C++ (``ops/groupnorm.py``,
+  ``csrc/groupnorm.cu``);
 * K2 STFT analysis / ISTFT synthesis, CUDA C++ (``ops/stft.py``,
-  ``csrc/stft.cu``);
-* K3 subband frame convolution and its two adjoints, CUDA C++
-  (``ops/subband_conv.py``, ``csrc/subband_conv.cu``);
+  ``csrc/stft.cu``, with the FFT stages of ``csrc/fft.cuh``);
+* K3 subband frame convolution, its two adjoints and the frame spectrum, by
+  FFTs in shared memory, CUDA C++ (``ops/subband_conv.py``,
+  ``csrc/subband_conv.cu``; plans in ``ops/fft_plan.py``);
 * K4 power-law compressed STFT loss, forward and backward, Triton
   (``ops/spec_loss.py``, ``csrc/spec_loss.py``);
 * K5 the passes between the FFTs of the minimum-phase projection, forward

@@ -1,7 +1,8 @@
 """STFT-domain subband reverberation operators (``buddy_tpu/operators/subband.py``).
 
 ``SubbandFiltering`` (informed): a complex FIR along the STFT frames per
-frequency bin, filter H (B, F, Nf) — kernel K3 (``ops/subband_conv.py``).
+frequency bin, filter H (B, F, Nf) — kernel K3 (``ops/subband_conv.py``),
+with the frame-axis spectrum of a constant X hoisted by ``frame_fft``.
 
 ``BlindSubbandFiltering``: the filter is parameterised by per-EQ-band
 multi-exponential magnitude decays plus per-(bin, frame) phases
@@ -27,7 +28,7 @@ from buddy_tpu_torch.operators.shared import Operator
 from buddy_tpu_torch.ops.filter_design import (FilterDesignGeometry, design_plain,
                                                filter_design)
 from buddy_tpu_torch.ops.minphase import minimum_phase_version
-from buddy_tpu_torch.ops.subband_conv import subband_conv
+from buddy_tpu_torch.ops.subband_conv import frame_spectrum, subband_conv
 
 
 class SubbandFiltering(Operator):
@@ -52,6 +53,7 @@ class SubbandFiltering(Operator):
         x = torch.zeros((1, self.length_rir + 1024), device=self.device)
         x[0, 0] = 1.0
         self._X_imp = self.apply_stft(x)          # impulse spectrum for get_time_RIR
+        self._X_imp_f = None                      # its frame_fft, at first use
 
     def stft(self, x):
         return self.op_stft.stft(x)
@@ -65,23 +67,30 @@ class SubbandFiltering(Operator):
     def apply_istft(self, X, length=None):
         return self.op_stft.apply_istft(X, length)
 
-    def subband_filtering(self, X: torch.Tensor, H: torch.Tensor) -> torch.Tensor:
-        """Y[b, f, t] = sum_j H[b, f, j] X[b, f, t + pre - j] (kernel K3)."""
+    def subband_filtering(self, X: torch.Tensor, H: torch.Tensor,
+                          Xf: torch.Tensor | None = None) -> torch.Tensor:
+        """Y[b, f, t] = sum_j H[b, f, j] X[b, f, t + pre - j] (kernel K3);
+        ``Xf`` is ``frame_fft(X)`` where the caller hoisted it."""
         squeeze = X.dim() == 2 and H.dim() == 2
         X = X[None] if X.dim() == 2 else X
         H = H[None] if H.dim() == 2 else H
-        Y = subband_conv(X, H, self.pre)
+        Xf = Xf[None] if Xf is not None and Xf.dim() == 2 else Xf
+        Y = subband_conv(X, H, self.pre, Xf)
         return Y[0] if squeeze else Y
 
     def frame_fft(self, X: torch.Tensor) -> torch.Tensor:
-        """The hoist of X out of the blind inner loop.  K3 convolves X
-        directly, so there is no frame-axis transform to hoist: X as is."""
-        return X.contiguous()
+        """Frame-axis spectrum of a spectrogram at K3's transform length, so
+        that callers hoist the transform of a constant X out of the blind
+        inner loop (10 re-uses per diffusion step).  Not differentiable."""
+        Xb = X[None] if X.dim() == 2 else X
+        Xf = frame_spectrum(Xb.detach(), self.Nf)
+        return Xf[0] if X.dim() == 2 else Xf
 
     def degradation(self, x=None, mode: str = "waveform", H=None, detach_operator=False,
-                    X=None, length: int | None = None):
+                    X=None, Xf=None, length: int | None = None):
         """Apply the subband reverb model to a (B, n) or (n,) waveform, or to
-        a precomputed observation STFT ``X`` with its ``length``."""
+        a precomputed observation STFT ``X`` with its ``length`` (and its
+        ``frame_fft`` ``Xf``)."""
         if X is None:
             squeeze = x.dim() == 1
             length = x.shape[-1]
@@ -96,7 +105,7 @@ class SubbandFiltering(Operator):
             H = self.H
         if detach_operator:
             H = H.detach()
-        Y = self.subband_filtering(X, H)
+        Y = self.subband_filtering(X, H, Xf)
         if mode == "waveform":
             y = self.apply_istft(Y, length=length)
             return y[0] if squeeze else y
@@ -108,8 +117,10 @@ class SubbandFiltering(Operator):
         """Excite the operator with an impulse: (B, F, Nf) -> (B, L) or
         (F, Nf) -> (L,), L = hop*Nf + 1024."""
         H = self.H if H is None else H
+        if self._X_imp_f is None:
+            self._X_imp_f = self.frame_fft(self._X_imp)
         y = self.degradation(None, H=H if H.dim() == 3 else H[None], X=self._X_imp,
-                             length=self.length_rir + 1024)
+                             Xf=self._X_imp_f, length=self.length_rir + 1024)
         return y if H.dim() == 3 else y[0]
 
     def rir_to_H(self, rir: torch.Tensor) -> torch.Tensor:

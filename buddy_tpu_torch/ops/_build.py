@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled by ``nvcc``
 for ``sm_90a`` into ``buddy_tpu_torch/_build/lib<name>-<hash>.so`` (the hash
-covers the source and the flags, so an edited source is rebuilt).  The build
+covers the source, the headers of ``csrc/`` and the flags, so an edited
+source or header is rebuilt).  The build
 directory is listed in ``.gitignore``.  ``build()`` starts one ``nvcc`` per
 missing library, all at once.
 """
@@ -20,7 +21,7 @@ import time
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("stft", "subband_conv", "filter_design", "wpe_solve")
+SOURCES = ("stft", "subband_conv", "groupnorm", "filter_design", "wpe_solve")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -44,8 +45,12 @@ def source_path(name: str) -> str:
 
 
 def library_path(name: str) -> str:
-    with open(source_path(name), "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    digest = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for path in [source_path(name)] + [os.path.join(CSRC_DIR, h) for h in headers]:
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    digest = digest.hexdigest()[:12]
     return os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
 
 

@@ -1,27 +1,53 @@
-"""GroupNorm with an optional fused SiLU, and kernel K1 (Triton).
+"""GroupNorm with an optional fused SiLU, and kernel K1 (CUDA, ``csrc/groupnorm.cu``).
 
 Semantics (``buddy_tpu/models/layers.py::GroupNormAct``): groups over
 contiguous channel blocks, statistics in float32 from per-channel first and
 second moments (var = E[x^2] - E[x]^2), eps inside the rsqrt, affine, then
-SiLU when asked.  Input is NCHW; the kernel wants it in channels_last memory
+SiLU when asked.  Input is NCHW; the kernels want it in channels_last memory
 format, which is how the U-Net keeps its activations.
 
-K1 (``csrc/groupnorm.py``) is a statistics pass plus a normalise pass
-forward, and the same two passes backward.  ``group_norm_act`` is the
-forward wrapper and ``group_norm_act_backward`` the backward one; each counts
-its launches, one per launch of its pair of kernels.  CPU tensors take the
-plain PyTorch version (autograd differentiates it); CUDA tensors launch the
-kernels or raise.
+K1 is one C call a pass, forward (``group_norm_act``) and backward
+(``group_norm_act_backward``), each counting its calls: two launches (the
+statistics of row slabs, then the coefficients formed in the second
+kernel's prologue and the normalise or dx pass), or, when asked
+(``L2_BLOCKING``), one cooperative launch that walks the tensor in chunks
+of whole groups (``l2_chunks``) that stay in the L2 between the statistics
+and the normalise.  Nothing runs between the launches.  The plain functions below
+spell out the kernels' algebra on their partial sums; CPU tensors take the
+plain version (autograd differentiates it), CUDA tensors launch the kernels
+or raise.
 """
 
 from __future__ import annotations
 
+import ctypes
+from functools import lru_cache
+
 import torch
 import torch.nn.functional as F
 
-_ROW_SLABS = 64  # statistics partials per utterance (two-level reduction)
+from buddy_tpu_torch.ops import _build
+
+SLABS_PER_SM = 4        # statistics CTAs an SM over the batch (two launches)
+MIN_SLAB_ROWS = 64      # fewest rows a statistics CTA reduces
+# CTAs an SM of the cooperative kernels, forward and backward
+# (csrc/groupnorm.cu kCoopFwdCtas, kCoopBwdCtas), by tensors read
+_COOP_CTAS_PER_SM = {1: 2, 2: 1}
+
+_I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+_SIGNATURES = {
+    "gn_forward": [_P] * 7 + [_I] * 6 + [_F] + [_I] * 4 + [_P],
+    "gn_backward": [_P] * 11 + [_I] * 10 + [_P],
+}
+# the cooperative L2-blocked launch instead of two launches: measured slower
+# at all four of the U-Net's shapes on the H100 (PERF.md, Findings), so off;
+# a call may still ask for it (``l2=True``)
+L2_BLOCKING = False
 
 
+# ---------------------------------------------------------------------------
+# the plain version and the kernels' algebra
+# ---------------------------------------------------------------------------
 def _group_stats(s1, s2, num_groups, count, eps):
     """Per-channel sums (B, C) -> per-group mean and rstd (B, G)."""
     B, C = s1.shape
@@ -51,19 +77,109 @@ def group_norm_act_plain(x, weight, bias, num_groups: int, eps: float = 1e-6,
     return y.to(x.dtype)
 
 
+def slab_schedule(B: int, HW: int, sms: int):
+    """(S, RS): the statistics pass's slabs an utterance and rows a slab,
+    about SLABS_PER_SM CTAs an SM over the batch, at least MIN_SLAB_ROWS
+    rows a slab, no empty slab (the last may be shorter)."""
+    S = max(1, min(-(-HW // MIN_SLAB_ROWS), -(-SLABS_PER_SM * sms // B)))
+    RS = -(-HW // S)
+    return -(-HW // RS), RS
+
+
+def l2_chunks(C: int, G: int, HW: int, elem_bytes: int, streams: int, l2_bytes: int) -> int:
+    """Channels a chunk of the cooperative kernel: the widest whole number of
+    groups that divides C (a multiple of the 16-byte vector where C is one)
+    whose reads, ``streams`` tensors of HW rows (x; x and dy), take at most
+    half the L2; 0 where not even one group fits."""
+    gs, vec = C // G, 16 // elem_bytes
+    for Cc in range(C, 0, -gs):
+        if C % Cc or (C % vec == 0 and Cc % vec):
+            continue
+        if streams * HW * Cc * elem_bytes <= l2_bytes // 2:
+            return Cc
+    return 0
+
+
+def chunk_schedule(B: int, C: int, Cc: int):
+    """The cooperative kernel's chunks in order: (utterance, first channel)
+    of chunk k, as ``csrc/groupnorm.cu`` walks them."""
+    per_b = C // Cc
+    return [(k // per_b, (k % per_b) * Cc) for k in range(B * per_b)]
+
+
+def _slabs(t: torch.Tensor, S: int, RS: int) -> torch.Tensor:
+    """(B, HW, C) -> (B, S, RS, C), the last slab zero-padded."""
+    B, HW, C = t.shape
+    return F.pad(t, (0, 0, 0, S * RS - HW)).view(B, S, RS, C)
+
+
+def slab_sums_plain(xv: torch.Tensor, S: int, RS: int) -> torch.Tensor:
+    """The statistics kernel's per-channel sums: (B, HW, C) -> (B, S, 2, C)
+    of (sum x, sum x^2) over each slab's rows."""
+    xs = _slabs(xv.float(), S, RS)
+    return torch.stack([xs.sum(2), (xs * xs).sum(2)], 2)
+
+
+def group_partials_plain(ch: torch.Tensor, G: int, weight=None) -> torch.Tensor:
+    """(..., 2, C) per-channel sums (times weight[c] when given) -> (..., G, 2)
+    per-group sums, as the kernels store their partials."""
+    if weight is not None:
+        ch = ch * weight.float()
+    C = ch.shape[-1]
+    return ch.reshape(ch.shape[:-1] + (G, C // G)).sum(-1).transpose(-1, -2)
+
+
+def forward_coefficients_plain(part: torch.Tensor, weight, bias, count: float, eps: float):
+    """The normalise kernel's prologue: partials (B, S, G, 2) -> mean, rstd
+    (B, G) and the per-channel a, sh (B, C) with y = x a + sh."""
+    s = part.sum(1)
+    mean = s[..., 0] / count
+    rstd = torch.rsqrt(s[..., 1] / count - mean * mean + eps)
+    return (mean, rstd) + _affine(mean, rstd, weight, bias, weight.shape[0])
+
+
+def _du(xf, dyf, a, sh, silu: bool):
+    """The gradient at the pre-activation u = x a + sh (rows (B, ..., C))."""
+    if not silu:
+        return dyf
+    u = xf * a + sh
+    s = torch.sigmoid(u)
+    return dyf * (s * (1.0 + u * (1.0 - s)))
+
+
+def backward_slab_sums_plain(xv, dyv, a, sh, silu: bool, S: int, RS: int) -> torch.Tensor:
+    """The backward statistics kernel's per-channel sums: (B, S, 2, C) of
+    (sum du, sum du x) over each slab's rows; a, sh (B, C)."""
+    xs, gs = _slabs(xv.float(), S, RS), _slabs(dyv.float(), S, RS)
+    du = _du(xs, gs, a[:, None, None], sh[:, None, None], silu)
+    return torch.stack([du.sum(2), (du * xs).sum(2)], 2)
+
+
+def backward_coefficients_plain(pg: torch.Tensor, mean, rstd, count: float):
+    """The dx kernel's prologue: weighted partials (B, S, G, 2) of (sum w du,
+    sum w du x) -> c2, c3 (B, G) with dx = a du + c2 x + c3."""
+    s = pg.sum(1)
+    m1 = s[..., 0] / count
+    m2 = rstd * (s[..., 1] - mean * s[..., 0]) / count
+    return -rstd * rstd * m2, -rstd * m1 + mean * rstd * rstd * m2
+
+
+def weight_grads_plain(pc: torch.Tensor, mean, rstd):
+    """d weight, d bias (C,) from per-channel partials (B, S, 2, C)."""
+    s = pc.sum(1)
+    rep = s.shape[-1] // mean.shape[1]
+    m, r = mean.repeat_interleave(rep, 1), rstd.repeat_interleave(rep, 1)
+    return (r * (s[:, 1] - m * s[:, 0])).sum(0), s[:, 0].sum(0)
+
+
+# ---------------------------------------------------------------------------
+# the kernels
+# ---------------------------------------------------------------------------
 def _as_bhwc(t: torch.Tensor) -> torch.Tensor:
     """NCHW tensor -> its channels_last storage viewed as (B, HW, C)."""
     t = t.contiguous(memory_format=torch.channels_last)
     B, C, H, W = t.shape
     return t.permute(0, 2, 3, 1).reshape(B, H * W, C)
-
-
-def _launch_config(HW: int, C: int):
-    import triton
-    block_c = triton.next_power_of_2(C)
-    block_hw = max(16, 8192 // block_c)
-    rows = triton.cdiv(triton.cdiv(HW, _ROW_SLABS), block_hw) * block_hw
-    return block_c, block_hw, rows, triton.cdiv(HW, rows)
 
 
 def _check(x: torch.Tensor) -> None:
@@ -72,74 +188,98 @@ def _check(x: torch.Tensor) -> None:
                          f"got {x.dtype} {tuple(x.shape)} on {x.device}")
 
 
-def _launch_forward(x, weight, bias, num_groups, eps, silu):
-    from buddy_tpu_torch.csrc import groupnorm as K
+@lru_cache(maxsize=None)
+def _device_info(device: torch.device):
+    """(SM count, L2 bytes, the cooperative kernels' grid barrier) of a card."""
+    props = torch.cuda.get_device_properties(device)
+    return (props.multi_processor_count, props.L2_cache_size,
+            torch.zeros(2, dtype=torch.int32, device=device))
+
+
+def _schedule(x: torch.Tensor, G: int, streams: int, l2):
+    """(S, RS, Cc, grid) of a call: Cc = 0 for two launches."""
+    B, C, H, W = x.shape
+    HW = H * W
+    sms, l2_bytes, _ = _device_info(x.device)
+    S, RS = slab_schedule(B, HW, sms)
+    if l2 is None:
+        l2 = L2_BLOCKING
+    Cc = l2_chunks(C, G, HW, x.element_size(), streams, l2_bytes) if l2 else 0
+    return S, RS, Cc, _COOP_CTAS_PER_SM[streams] * sms
+
+
+def _launch_forward(x, weight, bias, num_groups: int, eps: float, silu: bool, l2=None):
+    """K1 forward: (y NCHW in channels_last memory, mr (B, G, 2) = mean, rstd)."""
     _check(x)
     B, C, H, W = x.shape
+    G = num_groups
+    S, RS, Cc, grid = _schedule(x, G, 1, l2)
     xv = _as_bhwc(x)
-    HW = H * W
-    block_c, block_hw, rows, n_slabs = _launch_config(HW, C)
-    part = torch.empty((B, n_slabs, 2, C), device=x.device, dtype=torch.float32)
-    K.gn_stats_kernel[(B, n_slabs)](xv, part, HW, C, rows,
-                                   BLOCK_HW=block_hw, BLOCK_C=block_c, num_warps=4)
-    s = part.sum(1)
-    mean, rstd = _group_stats(s[:, 0], s[:, 1], num_groups, HW * (C // num_groups), eps)
-    a, sh = _affine(mean, rstd, weight, bias, C)
-    a, sh = a.contiguous(), sh.contiguous()
+    w, b = weight.float().contiguous(), bias.float().contiguous()
+    mr = torch.empty((B, G, 2), device=x.device, dtype=torch.float32)
+    part = torch.empty((2 * grid * (Cc // (C // G)) * 2) if Cc else (B * S * G * 2),
+                       device=x.device, dtype=torch.float32)
     y = torch.empty_like(xv)
-    K.gn_apply_kernel[(B, (HW + block_hw - 1) // block_hw)](
-        xv, y, a, sh, HW, C, BLOCK_HW=block_hw, BLOCK_C=block_c, SILU=silu, num_warps=4)
+    lib = _build.load("groupnorm", _SIGNATURES)
+    err = lib.gn_forward(_build.ptr(xv), _build.ptr(y), _build.ptr(w), _build.ptr(b),
+                         _build.ptr(mr), _build.ptr(part), _build.ptr(_device_info(x.device)[2]),
+                         B, H * W, C, G, S, RS, eps, Cc, grid, int(x.dtype == torch.bfloat16),
+                         int(silu), _build.stream(x.device))
+    _build.check(err, "gn_forward")
     group_norm_act.launches += 1
-    return y.view(B, H, W, C).permute(0, 3, 1, 2), mean, rstd, a, sh
+    return y.view(B, H, W, C).permute(0, 3, 1, 2), mr
 
 
-def group_norm_act_backward(x, dy, weight, mean, rstd, a, sh, silu: bool):
-    """K1 backward: (dx, d weight, d bias) of y = act(GN(x)) given dy."""
-    from buddy_tpu_torch.csrc import groupnorm as K
+def group_norm_act_backward(x, dy, weight, bias, mr, silu: bool, need_weight_grads: bool = True,
+                            l2=None):
+    """K1 backward: (dx, d weight, d bias) of y = act(GN(x)) given dy and
+    the forward's mean and rstd ``mr``; the weight gradients are None when
+    not asked for."""
+    _check(x)
     _check(dy)
     B, C, H, W = x.shape
-    G = mean.shape[1]
-    HW = H * W
+    G = mr.shape[1]
+    S, RS, Cc, grid = _schedule(x, G, 2, l2)
+    if not dy.is_contiguous(memory_format=torch.channels_last) or dy.dtype != x.dtype:
+        group_norm_act_backward.dy_copies += 1
     xv, dyv = _as_bhwc(x), _as_bhwc(dy.to(x.dtype))
-    block_c, block_hw, rows, n_slabs = _launch_config(HW, C)
-    part = torch.empty((B, n_slabs, 2, C), device=x.device, dtype=torch.float32)
-    K.gn_bwd_stats_kernel[(B, n_slabs)](xv, dyv, a, sh, part, HW, C, rows,
-                                       BLOCK_HW=block_hw, BLOCK_C=block_c, SILU=silu,
-                                       num_warps=4)
-    s = part.sum(1)
-    s_du, s_dux = s[:, 0], s[:, 1]                                  # (B, C)
-    count = HW * (C // G)
-    w = weight.float()[None, :]
-    rep = lambda t: t.repeat_interleave(C // G, 1)                   # (B, G) -> (B, C)
-    grp = lambda t: t.view(B, G, C // G).sum(-1)                     # (B, C) -> (B, G)
-    m1 = grp(w * s_du) / count
-    m2 = rstd * grp(w * (s_dux - rep(mean) * s_du)) / count
-    c2 = rep(-rstd * rstd * m2).contiguous()
-    c3 = rep(-rstd * m1 + mean * rstd * rstd * m2).contiguous()
+    w, b = weight.float().contiguous(), bias.float().contiguous()
+    f32 = dict(device=x.device, dtype=torch.float32)
+    if Cc:
+        pg = torch.empty(2 * grid * (Cc // (C // G)) * 2, **f32)
+        pc = torch.empty(B * C * grid * 2, **f32) if need_weight_grads else None
+    else:
+        pg = torch.empty(B * S * G * 2, **f32)
+        pc = torch.empty(B * S * 2 * C, **f32) if need_weight_grads else None
+    dw = torch.empty(C, **f32) if need_weight_grads else None
+    db = torch.empty(C, **f32) if need_weight_grads else None
     dx = torch.empty_like(xv)
-    K.gn_bwd_apply_kernel[(B, (HW + block_hw - 1) // block_hw)](
-        xv, dyv, dx, a, sh, c2, c3, HW, C,
-        BLOCK_HW=block_hw, BLOCK_C=block_c, SILU=silu, num_warps=4)
+    opt = lambda t: None if t is None else _build.ptr(t)
+    lib = _build.load("groupnorm", _SIGNATURES)
+    err = lib.gn_backward(_build.ptr(xv), _build.ptr(dyv), _build.ptr(dx), _build.ptr(w),
+                          _build.ptr(b), _build.ptr(mr), _build.ptr(pg), opt(pc), opt(dw), opt(db),
+                          _build.ptr(_device_info(x.device)[2]), B, H * W, C, G, S, RS, Cc, grid,
+                          int(x.dtype == torch.bfloat16), int(silu), _build.stream(x.device))
+    _build.check(err, "gn_backward")
     group_norm_act_backward.launches += 1
-    d_weight = (rep(rstd) * (s_dux - rep(mean) * s_du)).sum(0)
-    d_bias = s_du.sum(0)
-    return dx.view(B, H, W, C).permute(0, 3, 1, 2), d_weight, d_bias
+    return dx.view(B, H, W, C).permute(0, 3, 1, 2), dw, db
 
 
 class _GroupNormActFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, weight, bias, num_groups, eps, silu):
-        y, mean, rstd, a, sh = _launch_forward(x, weight, bias, num_groups, eps, silu)
-        ctx.save_for_backward(x, weight, mean, rstd, a, sh)
+        y, mr = _launch_forward(x, weight, bias, num_groups, eps, silu)
+        ctx.save_for_backward(x, weight, bias, mr)
         ctx.silu = silu
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        x, weight, mean, rstd, a, sh = ctx.saved_tensors
-        dx, dw, db = group_norm_act_backward(x, dy, weight, mean, rstd, a, sh, ctx.silu)
+        x, weight, bias, mr = ctx.saved_tensors
+        need = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
+        dx, dw, db = group_norm_act_backward(x, dy, weight, bias, mr, ctx.silu, need)
         return (dx, dw.to(weight.dtype) if ctx.needs_input_grad[1] else None,
-                db.to(weight.dtype) if ctx.needs_input_grad[2] else None, None, None, None)
+                db.to(bias.dtype) if ctx.needs_input_grad[2] else None, None, None, None)
 
 
 def group_norm_act(x, weight, bias, num_groups: int, eps: float = 1e-6, silu: bool = False):
@@ -152,3 +292,4 @@ def group_norm_act(x, weight, bias, num_groups: int, eps: float = 1e-6, silu: bo
 
 group_norm_act.launches = 0
 group_norm_act_backward.launches = 0
+group_norm_act_backward.dy_copies = 0     # calls whose dy came in another layout or dtype

@@ -37,17 +37,15 @@ import torch.nn.functional as F
 
 from buddy_tpu_torch.device import resolve_device
 from buddy_tpu_torch.ops import _build
+from buddy_tpu_torch.ops.fft_plan import (  # noqa: F401  (DIRECT_PRIMES: for the plan's tests)
+    DIRECT_PRIMES, MAX_STAGES, fft_radices, pad_shift, stage_tables)
 
 _SIGNATURES = {
     name: [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     for name in ("stft_analysis", "stft_synthesis")
 }
 
-MAX_STAGES = 12                       # csrc/stft.cu kMaxStages
 MAX_HALF = 4096                       # largest n_fft/2 the kernels take
-# radices with a butterfly of their own; any other prime up to 31 is a direct DFT
-BUTTERFLIES = (8, 4, 2, 3, 5)
-DIRECT_PRIMES = (7, 11, 13, 17, 19, 23, 29, 31)
 
 
 def hann_window(n: int) -> np.ndarray:
@@ -74,22 +72,6 @@ def pad_spec_frames(spec: torch.Tensor, multiple: int = 16) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # the plan the kernels read
 # ---------------------------------------------------------------------------
-def fft_radices(m: int):
-    """Radices of a complex FFT of length m for the kernels: eights, a four
-    or a two, threes and fives, then one prime up to 31 as a direct DFT; None where m
-    has a larger prime factor, two such primes, or needs more than
-    MAX_STAGES stages."""
-    radices = []
-    for r in BUTTERFLIES + DIRECT_PRIMES:
-        while m % r == 0:
-            radices.append(r)
-            m //= r
-    if m != 1 or not radices or len(radices) > MAX_STAGES or \
-            len(set(radices) & set(DIRECT_PRIMES)) > 1:
-        return None
-    return radices
-
-
 class StftPlan:
     """One STFT geometry as the kernels read it, with its tensors on ``device``.
 
@@ -142,26 +124,11 @@ class StftPlan:
     def _tables(self, half: int) -> np.ndarray:
         """The stage twiddles, direct-DFT roots and post-twiddles (float64,
         stored as complex64); sets their offsets and the padding shift."""
-        # bank-conflict padding of the shared-memory frames: one float2 in 16
-        # for power-of-two lengths, none for the others (where it only adds)
-        self.pad_shift = 4 if half & (half - 1) == 0 else 30
-        parts, self._tw_off, self._root_off, off, Ns = [], [], [], 0, 1
-        for R in self.radices:
-            k = np.arange(Ns)[:, None]
-            r = np.arange(1, R)[None, :]
-            parts.append(np.exp(-2j * np.pi * k * r / (Ns * R)).ravel())
-            self._tw_off.append(off)
-            off += Ns * (R - 1)
-            if R in DIRECT_PRIMES:
-                parts.append(np.exp(-2j * np.pi * np.arange(R) / R))
-                self._root_off.append(off)
-                off += R
-            else:
-                self._root_off.append(0)
-            Ns *= R
-        parts.append(np.exp(-2j * np.pi * np.arange(half + 1) / self.n_fft))
-        self.post_off = off
-        return np.concatenate(parts).astype(np.complex64)
+        self.pad_shift = pad_shift(half)
+        stages, self._tw_off, self._root_off = stage_tables(self.radices)
+        self.post_off = len(stages)
+        post = np.exp(-2j * np.pi * np.arange(half + 1) / self.n_fft).astype(np.complex64)
+        return np.concatenate([stages, post])
 
 
 # ---------------------------------------------------------------------------

@@ -114,12 +114,14 @@ class EulerHeunSamplerDPS(EulerHeunSampler):
         t_op = float(np.clip(t_hat, self.reg_sigma_min, self.reg_sigma_max)) \
             if self.reg_loss is not None else None
         with torch.no_grad():
-            X_den = operator.frame_fft(operator.apply_stft(x_den))
+            X_den = operator.apply_stft(x_den)
+            Xf_den = operator.frame_fft(X_den)
         H = None
         for _ in range(int(bh["op_updates_per_step"])):
             p = {k: v.detach().requires_grad_(True) for k, v in params.items()}
             H = operator.compute_H(p)
-            y_hat = operator.degradation(None, H=H, X=X_den, length=x_den.shape[-1])
+            y_hat = operator.degradation(None, H=H, X=X_den, Xf=Xf_den,
+                                         length=x_den.shape[-1])
             loss = torch.zeros(x_den.shape[0], device=x_den.device)
             if self.rec_loss_params is not None:
                 loss = loss + self.rec_loss_params(y_ref, y_hat, x_prepared=prepared)

@@ -6,18 +6,24 @@
 Phases, each printing one line:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
-2. building the CUDA kernels (K2, K3, K6, K7) from ``buddy_tpu_torch/csrc``
-   with nvcc, one process per source, all at once (the Triton kernels K1,
-   K4, K5 compile at their first launch, in phase 3);
-3. each kernel at the main path's shapes and dtypes (K2 at its four
-   geometries: operator, model, WPE and the operator's short `cons`
-   spectra, with its synthesis compared bit for bit between two calls and
-   its device time per launch from the profiler; K4 at the loss's and the
-   RIR regulariser's shape and in its three reductions), forward and
-   backward, against its plain PyTorch version on the same inputs, with the
-   stated tolerance, and timed beside its plain version and a PyTorch
-   library call where one computes the same function (the yardstick; the
-   port never calls it);
+2. building the CUDA kernels (K1, K2, K3, K6, K7) from ``buddy_tpu_torch/csrc``
+   with nvcc, one process per source, all at once (the Triton kernels K4
+   and K5 compile at their first launch, in phase 3);
+3. each kernel at the main path's shapes and dtypes (K1 at the U-Net's four
+   GroupNorm shapes in both of its schedules; K2 at its four geometries:
+   operator, model, WPE and the operator's short `cons` spectra, with its
+   synthesis compared bit for bit between two calls; K3's entry points with
+   and without the hoisted frame spectrum, against the direct sums and the
+   FFT-route plain versions; K4 at the loss's and the RIR regulariser's
+   shape and in its three reductions), forward and backward, against its
+   plain PyTorch version on the same inputs, with the stated tolerance, and
+   timed beside its plain version and a PyTorch library call where one
+   computes the same function (the yardstick; the port never calls it).
+   Every timed call comes after an L2 flush (a write of twice the L2, left
+   out of the profiler's tables by its kernel's name), so that inputs come
+   from device memory as on the main path; K2, K3 and K4 are also timed
+   warm (back to back) beside it.  Device us per launch come from the
+   profiler;
 4. the main path, through the tester: a paired test set (the 8 in-repo clean
    utterances of 65536 samples, 8 RIRs made from a seed) is written under
    chiprun_out/, and ``Tester.do_test()`` runs blind BUDDy dereverberation
@@ -58,19 +64,66 @@ N_STEPS = 4                     # diffusion steps of the main-path run (T=201 in
 OUT_DIR = os.path.join(REPO, "chiprun_out")
 TINY_CKPT = os.path.join(REPO, "tests", "goldens", "torch_tiny.ckpt.npz")
 TINY_CKPT_NET = ["network.nf=8", "network.ch_mult=[1,2,2,2]", "network.num_res_blocks=1"]
+# the U-Net's four GroupNorm shapes (B, C, H, W) at full width, bf16
+GN_SHAPES = [(8, 128, 256, 528), (8, 256, 128, 264), (8, 256, 64, 132), (8, 256, 32, 66)]
+# K3 on the main path: utterances, bins, frames of the operator geometry, taps, pre
+K3_SHAPE = (8, 513, 517, 100, 1)
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int = 20, repeats: int = 5, warmup: int = 3) -> float:
-    """Device time of fn() in ms (CUDA events): the median over ``repeats``
-    of the mean over ``reps`` back-to-back launches."""
+_FLUSH = {}
+
+
+def l2_flush() -> None:
+    """Overwrite a buffer of twice the L2 (in-place bitwise_not), so that the
+    next call finds its inputs in device memory and not in the cache."""
+    import torch
+    if "buf" not in _FLUSH:
+        l2 = torch.cuda.get_device_properties(torch.cuda.current_device()).L2_cache_size
+        _FLUSH["buf"] = torch.zeros(2 * l2, dtype=torch.uint8, device="cuda")
+    _FLUSH["buf"].bitwise_not_()
+
+
+def flush_keys() -> set:
+    """The profiler's keys of the flush's kernels (profiled once alone), so
+    that the per-launch tables leave them out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    if "keys" not in _FLUSH:
+        l2_flush()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            l2_flush()
+            torch.cuda.synchronize()
+        _FLUSH["keys"] = {e.key for e in prof.key_averages() if e.self_device_time_total > 0}
+        if not _FLUSH["keys"]:
+            raise AssertionError("the profiler shows no kernel of the L2 flush")
+    return _FLUSH["keys"]
+
+
+def cuda_ms(fn, reps: int = 20, repeats: int = 5, warmup: int = 3, cold: bool = True) -> float:
+    """Device time of fn() in ms (CUDA events).  Cold (the default): the
+    median over ``reps`` calls, each after an L2 flush that lies outside its
+    events; warm: the median over ``repeats`` of the mean over ``reps``
+    back-to-back calls on the same tensors."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    if cold:
+        times = []
+        for _ in range(reps):
+            l2_flush()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return sorted(times)[len(times) // 2]
     means = []
     for _ in range(repeats):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -104,38 +157,42 @@ def kernel_name(key: str) -> str:
     return key.split("(")[0].split("<")[0]
 
 
-def profile_device_us(fn, reps: int = 20) -> dict:
+def profile_device_us(fn, reps: int = 20, cold: bool = True) -> dict:
     """{kernel name: [device us, launches]} over ``reps`` calls of fn()
-    under torch.profiler (after one call outside it)."""
+    under torch.profiler (after one call outside it), each call after an L2
+    flush when ``cold``; the flush's kernel is left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    skip = flush_keys() if cold else set()
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if cold:
+                l2_flush()
             fn()
         torch.cuda.synchronize()
     found = {}
     for e in prof.key_averages():
-        if e.self_device_time_total > 0:
+        if e.self_device_time_total > 0 and e.key not in skip:
             f = found.setdefault(kernel_name(e.key), [0.0, 0])
             f[0] += e.self_device_time_total
             f[1] += e.count
     return found
 
 
-def device_us_per_launch(fn, names, reps: int = 20) -> dict:
+def device_us_per_launch(fn, names, reps: int = 20, cold: bool = True) -> dict:
     """Device us per launch of each kernel in ``names`` over ``reps`` calls of fn()."""
-    found = profile_device_us(fn, reps)
+    found = profile_device_us(fn, reps, cold)
     missing = [k for k in names if k not in found]
     if missing:
         raise AssertionError(f"profile shows no launch of {missing}")
     return {k: found[k][0] / found[k][1] for k in names}
 
 
-def device_us_per_call(fn, reps: int = 20) -> float:
+def device_us_per_call(fn, reps: int = 20, cold: bool = True) -> float:
     """Device us of all the kernels of one call of fn()."""
-    return sum(t for t, _ in profile_device_us(fn, reps).values()) / reps
+    return sum(t for t, _ in profile_device_us(fn, reps, cold).values()) / reps
 
 
 def synthesis_basis(plan):
@@ -162,7 +219,7 @@ def kernel_checks(dev):
     import torch
     import torch.nn.functional as F
     from buddy_tpu_torch.ops import groupnorm as K1, stft as K2, subband_conv as K3
-    from buddy_tpu_torch.ops.dft import good_fft_size
+    from buddy_tpu_torch.ops.fft_plan import conv_fft_size
     from buddy_tpu_torch.ops.stft import STFT, hann_window
     import numpy as np
 
@@ -172,35 +229,63 @@ def kernel_checks(dev):
     entries = {}
 
     # --- K1 GroupNorm + SiLU, the U-Net's four GN shapes, bf16 ----------------
-    gn_shapes = [(8, 128, 256, 528), (8, 256, 128, 264), (8, 256, 64, 132), (8, 256, 32, 66)]
-    for i, (B, C, H, W) in enumerate(gn_shapes):
+    # each shape in both schedules (two launches; one cooperative launch in
+    # chunks that stay in the L2), forward and backward with d weight and d
+    # bias, against the plain version; device us per call from the profiler
+    gn_table = []
+    for i, (B, C, H, W) in enumerate(GN_SHAPES):
         x = (rand(B, C, H, W) * 2 + 0.3).to(torch.bfloat16).contiguous(
             memory_format=torch.channels_last)
         w, b = 1 + 0.1 * rand(C), 0.1 * rand(C)
         G = min(C // 4, 32)
         dy = rand(B, C, H, W).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
-        y_k = K1.group_norm_act(x, w, b, G, 1e-6, silu=True)
         y_p = K1.group_norm_act_plain(x, w, b, G, 1e-6, silu=True)
-        # both normalise in float32 and round once to bf16: <= 1 bf16 ulp
-        # (2^-7 relative) at the largest output
-        tol = 2.0 ** -7 * float(y_p.abs().max())
-        err_f = max_err(y_k.float(), y_p.float())
-        check(f"groupnorm fwd {x.shape}", err_f, tol)
-        xk = x.detach().requires_grad_(True)
         xp = x.detach().requires_grad_(True)
-        wk, wp = w.clone().requires_grad_(True), w.clone().requires_grad_(True)
-        K1.group_norm_act(xk, wk, b, G, 1e-6, silu=True).backward(dy)
-        K1.group_norm_act_plain(xp, wp, b, G, 1e-6, silu=True).backward(dy)
-        # dx: float32 inside both, rounded to bf16; 2 ulps of the largest
+        wp, bp = w.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        yp_graph = K1.group_norm_act_plain(xp, wp, bp, G, 1e-6, silu=True)
+        yp_graph.backward(dy, retain_graph=True)
+        # both normalise in float32 and round once to bf16: <= 1 bf16 ulp
+        # (2^-7 relative) at the largest output; dx: float32 inside both,
+        # rounded to bf16, 2 ulps of the largest; d weight, d bias: float32
+        # sums of 1e5-1e7 terms in another order, 1e-3 of the largest
+        tol = 2.0 ** -7 * float(y_p.abs().max())
         tol_b = 2.0 ** -6 * float(xp.grad.abs().max())
-        err_b = max_err(xk.grad.float(), xp.grad.float())
-        check(f"groupnorm bwd dx {x.shape}", err_b, tol_b)
-        check(f"groupnorm bwd dweight {x.shape}", max_err(wk.grad, wp.grad),
-              1e-3 * float(wp.grad.abs().max()))
+        tol_w = 1e-3 * float(wp.grad.abs().max())
+        tol_db = 1e-3 * float(bp.grad.abs().max())
+        row = {"shape": [B, C, H, W]}
+        for mode, l2 in (("two launches", False), ("L2 chunks", True)):
+            Cc = K1._schedule(x, G, 1, l2)[2], K1._schedule(x, G, 2, l2)[2]
+            if l2 and not all(Cc):
+                continue
+            y_k, mr = K1._launch_forward(x, w, b, G, 1e-6, True, l2=l2)
+            err_f = max_err(y_k.float(), y_p.float())
+            check(f"groupnorm fwd {mode} {x.shape}", err_f, tol)
+            dx, dw, db = K1.group_norm_act_backward(x, dy, w, b, mr, True, True, l2=l2)
+            err_b = max_err(dx.float(), xp.grad.float())
+            check(f"groupnorm bwd dx {mode} {x.shape}", err_b, tol_b)
+            check(f"groupnorm bwd dweight {mode} {x.shape}", max_err(dw, wp.grad), tol_w)
+            check(f"groupnorm bwd dbias {mode} {x.shape}", max_err(db, bp.grad), tol_db)
+            again = K1.group_norm_act_backward(x, dy, w, b, mr, True, True, l2=l2)
+            if not (torch.equal(y_k, K1._launch_forward(x, w, b, G, 1e-6, True, l2=l2)[0])
+                    and all(torch.equal(u, v) for u, v in zip((dx, dw, db), again))):
+                raise AssertionError(f"groupnorm {mode} {x.shape}: two calls differ")
+            with torch.no_grad():
+                reps = 20
+                per_f = profile_device_us(
+                    lambda: K1._launch_forward(x, w, b, G, 1e-6, True, l2=l2), reps)
+                per_b = profile_device_us(
+                    lambda: K1.group_norm_act_backward(x, dy, w, b, mr, True, False, l2=l2), reps)
+            us_f = sum(t for t, _ in per_f.values()) / reps
+            us_b = sum(t for t, _ in per_b.values()) / reps
+            row[mode] = dict(err=(err_f, err_b), us=(us_f, us_b), chunk_channels=Cc if l2 else None,
+                             kernels={k: round(t / reps, 1) for k, (t, _) in
+                                      {**per_f, **per_b}.items()})
+        n = x.numel()
+        row["bound_ms"] = (bound_ms(4 * n, 10 * n)[0], bound_ms(6 * n, 20 * n)[0])
+        row["auto"] = "L2 chunks" if K1._schedule(x, G, 1, None)[2] else "two launches"
+        gn_table.append(row)
         if i == 0:
-            n = x.numel()
-            _, mean, rstd, a, sh = K1._launch_forward(x, w, b, G, 1e-6, True)
-            yp_graph = K1.group_norm_act_plain(xp, w, b, G, 1e-6, silu=True)
+            _, mr = K1._launch_forward(x, w, b, G, 1e-6, True)
             xl = x.detach().requires_grad_(True)
             wl, bl = w.to(x.dtype), b.to(x.dtype)      # F.group_norm wants one dtype
             yl = F.silu(F.group_norm(xl, G, wl, bl, 1e-6))
@@ -208,15 +293,27 @@ def kernel_checks(dev):
                 t_fwd = (cuda_ms(lambda: K1.group_norm_act(x, w, b, G, 1e-6, silu=True)),
                          cuda_ms(lambda: K1.group_norm_act_plain(x, w, b, G, 1e-6, silu=True)),
                          cuda_ms(lambda: F.silu(F.group_norm(x, G, wl, bl, 1e-6))))
-            t_bwd = (cuda_ms(lambda: K1.group_norm_act_backward(x, dy, w, mean, rstd, a, sh, True)),
-                     cuda_ms(lambda: torch.autograd.grad(yp_graph, xp, dy, retain_graph=True)),
-                     cuda_ms(lambda: torch.autograd.grad(yl, xl, dy, retain_graph=True)))
+                t_bwd = (cuda_ms(lambda: K1.group_norm_act_backward(x, dy, w, b, mr, True, False)),
+                         cuda_ms(lambda: torch.autograd.grad(yp_graph, xp, dy, retain_graph=True)),
+                         cuda_ms(lambda: torch.autograd.grad(yl, xl, dy, retain_graph=True)))
+            auto = row[row["auto"]]
             shape = list(x.shape)
             entries["groupnorm_silu_fwd"] = dict(
-                err=err_f, tol=tol, times=t_fwd, shape=shape, bound=bound_ms(4 * n, 10 * n))
+                err=auto["err"][0], tol=tol, times=t_fwd, shape=shape,
+                bound=bound_ms(4 * n, 10 * n),
+                extra={"device_us": auto["us"][0], "schedule": row["auto"]})
             entries["groupnorm_silu_bwd"] = dict(
-                err=err_b, tol=tol_b, times=t_bwd, shape=shape, bound=bound_ms(6 * n, 20 * n))
-    log(f"kernel K1 groupnorm+silu: fwd/bwd match the plain version at {gn_shapes}")
+                err=auto["err"][1], tol=tol_b, times=t_bwd, shape=shape,
+                bound=bound_ms(6 * n, 20 * n),
+                extra={"device_us": auto["us"][1], "schedule": row["auto"]})
+    log(f"kernel K1 groupnorm+silu: fwd/bwd (dx, dweight, dbias) match the plain version, and "
+        f"are bit-identical between two calls, in both schedules at {GN_SHAPES}; device us per "
+        f"call (cold) [fwd, bwd] by schedule, bound ms [fwd, bwd], and the schedule the wrapper "
+        f"takes: " + json.dumps([{k: (v if not isinstance(v, dict) else
+                                      {"us": [round(u, 1) for u in v["us"]],
+                                       "chunk_channels": v["chunk_channels"],
+                                       "kernels": v["kernels"]})
+                                  for k, v in r.items()} for r in gn_table]))
 
     # --- K2 STFT / ISTFT at the main path's geometries -------------------------
     # operator: 1024/128, hann(512) right-padded, constant, on apply_stft's
@@ -285,12 +382,16 @@ def kernel_checks(dev):
             # overlap-add check), so it is timed at the model and WPE geometries
             t_istft = None if n_fft == 1024 else cuda_ms(
                 lambda: torch.istft(spec, n_fft, 128, window=wt, center=True, length=length))
-            dev_us = device_us_per_launch(
-                lambda: (K2.stft_analysis(blocks, plan, T), K2.stft_synthesis(spec, plan)),
-                k2_names)
-            lib_us = (device_us_per_call(lambda: torch.stft(x, n_fft, 128, window=wt, center=True,
-                                                            pad_mode=pad_mode, return_complex=True)),
-                      device_us_per_call(conv_t))
+            pair = lambda: (K2.stft_analysis(blocks, plan, T), K2.stft_synthesis(spec, plan))
+            lib_a = lambda: torch.stft(x, n_fft, 128, window=wt, center=True, pad_mode=pad_mode,
+                                       return_complex=True)
+            dev_us = device_us_per_launch(pair, k2_names)
+            lib_us = (device_us_per_call(lib_a), device_us_per_call(conv_t))
+            # the same back to back, inputs warm in the L2 (for comparison with
+            # the numbers recorded before the flush)
+            dev_us_warm = device_us_per_launch(pair, k2_names, cold=False)
+            lib_us_warm = (device_us_per_call(lib_a, cold=False),
+                           device_us_per_call(conv_t, cold=False))
         # the least time for the same work: the signal read and the spectrum
         # written once, against a real FFT's 2.5 n log2 n operations per frame
         fft_flops = 2.5 * n_fft * np.log2(n_fft) * blocks.shape[0]
@@ -309,54 +410,114 @@ def kernel_checks(dev):
             f"device time / library ms: analysis {us_a / 1e3 / t_a[2]:.2f}, synthesis "
             f"{us_s / 1e3 / t_s[2]:.2f}; library device us per call: torch.stft {lib_us[0]:.1f}, "
             f"conv_transpose1d {lib_us[1]:.1f}; device time / library device time: analysis "
-            f"{us_a / lib_us[0]:.2f}, synthesis {us_s / lib_us[1]:.2f}")
+            f"{us_a / lib_us[0]:.2f}, synthesis {us_s / lib_us[1]:.2f} (all after an L2 flush); "
+            f"warm (back to back): device us per launch analysis "
+            f"{dev_us_warm['stft_analysis_kernel']:.1f}, synthesis "
+            f"{dev_us_warm['stft_synthesis_kernel']:.1f}, library {lib_us_warm[0]:.1f} / "
+            f"{lib_us_warm[1]:.1f}")
         if gname == "operator":                    # the kernels line reports this geometry
             entries["stft_analysis"] = dict(err=err_a, tol=tol_a, shape=list(blocks.shape),
                                             times=t_a, bound=b_a, extra={
-                                                "device_us": us_a, "library_device_us": lib_us[0]})
+                                                "device_us": us_a, "library_device_us": lib_us[0],
+                                                "device_us_warm": dev_us_warm[k2_names[0]],
+                                                "library_device_us_warm": lib_us_warm[0]})
             entries["stft_synthesis"] = dict(err=err_s, tol=tol_s, shape=list(spec.shape),
                                              times=t_s, bound=b_s, extra={
-                                                 "device_us": us_s, "library_device_us": lib_us[1]})
+                                                 "device_us": us_s, "library_device_us": lib_us[1],
+                                                 "device_us_warm": dev_us_warm[k2_names[1]],
+                                                 "library_device_us_warm": lib_us_warm[1]})
 
     # --- K3 subband convolution (B=8, F=513, T=517, Nf=100, pre=1) ----------------
-    Bn, Fb, Tf, Nf, pre = 8, 513, 517, 100, 1      # Tf: the operator geometry's frames
+    # each entry point with and without the hoisted frame spectrum, against
+    # the direct sums and the FFT-route plain versions; the bound counts X
+    # (or its spectrum) and H read once and the output written once against
+    # 5 n log2 n operations a complex transform of a row
+    Bn, Fb, Tf, Nf, pre = K3_SHAPE
     X, Hf, Gy = crand(Bn, Fb, Tf), crand(Bn, Fb, Nf), crand(Bn, Fb, Tf)
-    outs = {
-        "subband_conv": (lambda: K3.subband_conv(X, Hf, pre),
-                         lambda: K3.subband_conv_plain(X, Hf, pre)),
-        "subband_conv_adjoint": (lambda: K3.subband_conv_adjoint(Gy, Hf, pre),
-                                 lambda: K3.subband_conv_adjoint_plain(Gy, Hf, pre)),
-        "subband_conv_filter_grad": (lambda: K3.subband_conv_filter_grad(Gy, X, Nf, pre),
-                                     lambda: K3.subband_conv_filter_grad_plain(Gy, X, Nf, pre)),
-    }
-    n_fft = good_fft_size(Tf + Nf - 1)
+    n = conv_fft_size(Tf, Nf)
+    Xs = K3.frame_spectrum(X, Nf)
     fft, ifft = torch.fft.fft, torch.fft.ifft
-    library = {   # FFT convolution / correlation with torch.fft
-        "subband_conv": lambda: ifft(fft(X, n_fft) * fft(Hf, n_fft))[..., pre:pre + Tf],
-        "subband_conv_adjoint": lambda: torch.roll(
-            ifft(fft(Gy, n_fft) * fft(Hf, n_fft).conj()), pre, -1)[..., :Tf],
-        "subband_conv_filter_grad": lambda: torch.roll(
-            ifft(fft(Gy, n_fft) * fft(X, n_fft).conj()), pre, -1)[..., :Nf],
+    k3 = {   # name: ({variant: kernel call}, direct plain, {variant: FFT-route plain}, library,
+             #        {variant: (bytes, transforms a row)})
+        "subband_conv": (
+            {"hoisted": lambda: K3.subband_conv(X, Hf, pre, Xs),
+             "from X": lambda: K3.subband_conv(X, Hf, pre)},
+            lambda: K3.subband_conv_plain(X, Hf, pre),
+            {"hoisted": lambda: K3.subband_conv_fft_plain(X, Hf, pre, fft(X, n)),
+             "from X": lambda: K3.subband_conv_fft_plain(X, Hf, pre)},
+            lambda: ifft(fft(X, n) * fft(Hf, n))[..., pre:pre + Tf],
+            {"hoisted": (8 * (Xs.numel() + Hf.numel() + X.numel()), 2),
+             "from X": (8 * (2 * X.numel() + Hf.numel()), 3)}),
+        "subband_conv_adjoint": (
+            {"": lambda: K3.subband_conv_adjoint(Gy, Hf, pre)},
+            lambda: K3.subband_conv_adjoint_plain(Gy, Hf, pre),
+            {"": lambda: K3.subband_conv_adjoint_fft_plain(Gy, Hf, pre)},
+            lambda: torch.roll(ifft(fft(Gy, n) * fft(Hf, n).conj()), pre, -1)[..., :Tf],
+            {"": (8 * (2 * Gy.numel() + Hf.numel()), 3)}),
+        "subband_conv_filter_grad": (
+            {"hoisted": lambda: K3.subband_conv_filter_grad(Gy, X, Nf, pre, Xs),
+             "from X": lambda: K3.subband_conv_filter_grad(Gy, X, Nf, pre)},
+            lambda: K3.subband_conv_filter_grad_plain(Gy, X, Nf, pre),
+            {"hoisted": lambda: K3.subband_conv_filter_grad_fft_plain(Gy, X, Nf, pre, fft(X, n)),
+             "from X": lambda: K3.subband_conv_filter_grad_fft_plain(Gy, X, Nf, pre)},
+            lambda: torch.roll(ifft(fft(Gy, n) * fft(X, n).conj()), pre, -1)[..., :Nf],
+            {"hoisted": (8 * (Gy.numel() + Xs.numel() + Hf.numel()), 2),
+             "from X": (8 * (Gy.numel() + X.numel() + Hf.numel()), 3)}),
+        "frame_spectrum": (
+            {"": lambda: K3.frame_spectrum(X, Nf)},
+            lambda: K3.frame_spectrum_plain(X, Nf), {}, lambda: fft(X, n),
+            {"": (8 * (X.numel() + Xs.numel()), 1)}),
     }
-    t_idx = np.arange(Tf)
-    pairs = float(np.sum(np.minimum(Nf - 1, t_idx + pre) - np.maximum(0, t_idx + pre - Tf + 1) + 1))
-    flops = 8.0 * Bn * Fb * pairs                  # complex MAC = 8 real operations
-    nbytes = {"subband_conv": 8 * (2 * X.numel() + Hf.numel()),
-              "subband_conv_adjoint": 8 * (2 * Gy.numel() + Hf.numel()),
-              "subband_conv_filter_grad": 8 * (Gy.numel() + X.numel() + Hf.numel())}
+    rows = Bn * Fb
+    fft_ops = 5.0 * n * np.log2(n) * rows
+    k3_log = {}
     with torch.no_grad():
-        for name, (kern, plain) in outs.items():
-            ok, op = kern(), plain()
-            tol = 1e-4 * float(op.abs().max())     # float32 sums of 100 complex products
-            err = max_err(torch.view_as_real(ok), torch.view_as_real(op))
-            check(name, err, tol)
-            check(f"{name} (library)", max_err(torch.view_as_real(library[name]()),
-                                                torch.view_as_real(op)), 1e-3 * float(op.abs().max()))
-            entries[name] = dict(err=err, tol=tol, shape=[Bn, Fb, Tf, Nf],
-                                 times=(cuda_ms(kern), cuda_ms(plain), cuda_ms(library[name])),
-                                 bound=bound_ms(nbytes[name], flops))
-    log(f"kernel K3 subband conv: fwd/adjoint/filter-grad match the plain version at "
-        f"X {list(X.shape)}, H {list(Hf.shape)}")
+        for name, (kerns, plain, fft_plains, library, work) in k3.items():
+            op = plain()
+            tol = 1e-4 * float(op.abs().max())     # float32 FFTs of n points against direct sums
+            check(f"{name} (library)",
+                  max_err(torch.view_as_real(library()), torch.view_as_real(op)),
+                  1e-3 * float(op.abs().max()))
+            lib_ms = cuda_ms(library)
+            lib_us = device_us_per_call(library)
+            lib_us_warm = device_us_per_call(library, cold=False)
+            plain_ms = cuda_ms(plain)
+            for variant, kern in kerns.items():
+                ok = kern()
+                err = max_err(torch.view_as_real(ok), torch.view_as_real(op))
+                check(f"{name} {variant}", err, tol)
+                if variant in fft_plains:
+                    check(f"{name} {variant} (FFT-route plain)",
+                          max_err(torch.view_as_real(ok),
+                                  torch.view_as_real(fft_plains[variant]())), tol)
+                if not torch.equal(ok, kern()):
+                    raise AssertionError(f"{name} {variant}: two calls differ")
+                k3_name = ["subband_fft_conv_kernel"]
+                us = device_us_per_launch(kern, k3_name)[k3_name[0]]
+                us_warm = device_us_per_launch(kern, k3_name, cold=False)[k3_name[0]]
+                nbytes, transforms = work[variant]
+                bound = bound_ms(nbytes, transforms * fft_ops)
+                ms, ms_warm = cuda_ms(kern), cuda_ms(kern, cold=False)
+                k3_log[f"{name} {variant}".strip()] = {
+                    "err": err, "tol": tol, "ms": ms, "ms_warm": ms_warm, "device_us": us,
+                    "device_us_warm": us_warm, "bound_ms": bound, "library_ms": lib_ms,
+                    "library_device_us": lib_us, "library_device_us_warm": lib_us_warm,
+                    "device_time_over_library": us / lib_us, "plain_ms": plain_ms}
+                if variant in ("", "hoisted"):
+                    entries[name] = dict(
+                        err=err, tol=tol, shape=[Bn, Fb, Tf, Nf, n], times=(ms, plain_ms, lib_ms),
+                        bound=bound, extra={"variant": variant or None, "device_us": us,
+                                            "device_us_warm": us_warm, "ms_warm": ms_warm,
+                                            "library_device_us": lib_us,
+                                            "library_device_us_warm": lib_us_warm})
+                elif variant:
+                    entries[name]["extra"][variant] = {"ms": ms, "device_us": us,
+                                                       "bound_ms": bound[0]}
+    log(f"kernel K3 subband conv (FFTs of n = {n} in shared memory): fwd/adjoint/filter-grad, "
+        f"with and without the hoisted frame spectrum, and the frame spectrum match the direct "
+        f"sums and the FFT-route plain versions (1e-4 of the peak) and are bit-identical between "
+        f"two calls at X {list(X.shape)}, H {list(Hf.shape)}; cold (L2 flushed) and warm times, "
+        f"bounds (ms, by) and the torch.fft yardstick's device us: " + json.dumps(k3_log))
     return entries
 
 
@@ -432,17 +593,37 @@ def fused_kernel_checks(dev):
                                                               need_a=False)),
                         cuda_ms(lambda: torch.autograd.grad(Lg, Xg, ones, retain_graph=True)),
                         None)
+            # device us per launch, cold (L2 flushed) and warm (back to back)
+            k4_calls = {
+                "compress_kernel": lambda: K4.spec_compress(X, c),
+                "compress_bwd_kernel": lambda: K4.spec_compress_backward(X, gC, c),
+                "comp_loss_fwd_kernel": lambda: K4.comp_loss(Aref, X, c, scale),
+                "comp_loss_bwd_kernel": lambda: K4.comp_loss_backward(Aref, X, ones, c, scale,
+                                                                      need_a=False)}
+            k4_us = {}
+            with torch.no_grad():
+                for kname, call in k4_calls.items():
+                    k4_us[kname] = (device_us_per_launch(call, [kname])[kname],
+                                    device_us_per_launch(call, [kname], cold=False)[kname],
+                                    cuda_ms(call, cold=False))
             shape = list(X.shape)
+            extra = lambda k: {"device_us": k4_us[k][0], "device_us_warm": k4_us[k][1],
+                               "ms_warm": k4_us[k][2]}
             entries["spec_compress_fwd"] = dict(err=e_cf, tol=t_cf, times=times_cf, shape=shape,
-                                                bound=bound_ms(16 * n, 30 * n))
+                                                bound=bound_ms(16 * n, 30 * n),
+                                                extra=extra("compress_kernel"))
             entries["spec_compress_bwd"] = dict(err=e_cb, tol=t_cb, times=times_cb, shape=shape,
-                                                bound=bound_ms(24 * n, 50 * n))
+                                                bound=bound_ms(24 * n, 50 * n),
+                                                extra=extra("compress_bwd_kernel"))
             entries["comp_loss_fwd"] = dict(err=e_lf, tol=1e-4, times=times_lf, shape=shape,
-                                            bound=bound_ms(16 * n + 4 * B, 40 * n))
+                                            bound=bound_ms(16 * n + 4 * B, 40 * n),
+                                            extra=extra("comp_loss_fwd_kernel"))
             entries["comp_loss_bwd"] = dict(err=e_lb, tol=1e-5, times=times_lb, shape=shape,
-                                            bound=bound_ms(24 * n + 4 * B, 80 * n))
+                                            bound=bound_ms(24 * n + 4 * B, 80 * n),
+                                            extra=extra("comp_loss_bwd_kernel"))
     log(f"kernel K4 compressed loss: compression and loss, fwd/bwd, sum/mean/summean, match "
-        f"the plain version at (8,513,{T_loss}) and (8,513,{T_reg})")
+        f"the plain version at (8,513,{T_loss}) and (8,513,{T_reg}); at (8,513,{T_loss}) device "
+        f"us per launch cold / warm and the warm CUDA-event ms: " + json.dumps(k4_us))
 
     # --- K5 minimum phase: the operator's RIR (8, 12928) -> n = 25856 ---------------------
     L = op.length_rir + op.hop_length
@@ -668,9 +849,10 @@ def check_outputs(tester, mode: str, n_items: int, length: int, blind: bool) -> 
 
 
 _PORT_KERNELS = (
-    "gn_stats_kernel", "gn_apply_kernel", "gn_bwd_stats_kernel", "gn_bwd_apply_kernel",   # K1
+    "gn_stats_kernel", "gn_apply_kernel", "gn_bwd_stats_kernel", "gn_bwd_apply_kernel",
+    "gn_coop_kernel", "gn_bwd_coop_kernel",                                               # K1
     "stft_analysis_kernel", "stft_synthesis_kernel",                                      # K2
-    "fir_kernel", "fir_dh_kernel",                                                        # K3
+    "subband_fft_conv_kernel",                                                            # K3
     "compress_kernel", "compress_bwd_kernel", "comp_loss_fwd_kernel", "comp_loss_bwd_kernel",  # K4
     "logmag_kernel", "window_kernel", "phasor_kernel", "real_crop_kernel",
     "phasor_bwd_kernel", "mag_bwd_kernel",                                                # K5
@@ -755,6 +937,8 @@ def main_path(dev, wrappers):
         w.launches = 0
     for name in ("stft_analysis", "stft_synthesis"):
         wrappers[name].by_n_fft.clear()
+    gn_bwd = wrappers["groupnorm_silu_bwd"]
+    gn_bwd.dy_copies = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     run()
@@ -771,6 +955,8 @@ def main_path(dev, wrappers):
         f"ms/step), cold run {cold:.3f} s, peak memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     log("main path launches: " + json.dumps(launches))
+    log(f"main path K1 backward calls whose dy came in another layout or dtype (a copy each): "
+        f"{gn_bwd.dy_copies} of {launches['groupnorm_silu_bwd']}")
     log(f"main path K2 launches by n_fft (total; per step of {T}, the batch's one-off "
         f"launches included): " + json.dumps({
             name: {n: [c, round(c / T, 2)] for n, c in sorted(wrappers[name].by_n_fft.items())}
@@ -929,6 +1115,7 @@ def main() -> int:
         "stft_analysis": K2.stft_analysis, "stft_synthesis": K2.stft_synthesis,
         "subband_conv": K3.subband_conv, "subband_conv_adjoint": K3.subband_conv_adjoint,
         "subband_conv_filter_grad": K3.subband_conv_filter_grad,
+        "frame_spectrum": K3.frame_spectrum,
         "spec_compress_fwd": K4.spec_compress, "spec_compress_bwd": K4.spec_compress_backward,
         "comp_loss_fwd": K4.comp_loss, "comp_loss_bwd": K4.comp_loss_backward,
         "minphase_fwd": K5.minimum_phase_version, "minphase_bwd": K5.minimum_phase_backward,
@@ -936,9 +1123,9 @@ def main() -> int:
         "wpe_solve": K7.wpe_solve,
     }
     meta = {
-        "groupnorm_silu_fwd": ("triton", "buddy_tpu_torch/csrc/groupnorm.py",
+        "groupnorm_silu_fwd": ("cuda", "buddy_tpu_torch/csrc/groupnorm.cu",
                                "scripts/tpu_pallas_gn_probe.py:61"),
-        "groupnorm_silu_bwd": ("triton", "buddy_tpu_torch/csrc/groupnorm.py",
+        "groupnorm_silu_bwd": ("cuda", "buddy_tpu_torch/csrc/groupnorm.cu",
                                "buddy_tpu/models/layers.py:62"),
         "stft_analysis": ("cuda", "buddy_tpu_torch/csrc/stft.cu", "buddy_tpu/ops/stft.py:154"),
         "stft_synthesis": ("cuda", "buddy_tpu_torch/csrc/stft.cu", "buddy_tpu/ops/stft.py:317"),
@@ -948,6 +1135,8 @@ def main() -> int:
                                  "buddy_tpu/operators/subband.py:76"),
         "subband_conv_filter_grad": ("cuda", "buddy_tpu_torch/csrc/subband_conv.cu",
                                      "buddy_tpu/operators/subband.py:76"),
+        "frame_spectrum": ("cuda", "buddy_tpu_torch/csrc/subband_conv.cu",
+                           "buddy_tpu/operators/subband.py:132"),
         "spec_compress_fwd": ("triton", "buddy_tpu_torch/csrc/spec_loss.py",
                               "buddy_tpu/losses.py:51"),
         "spec_compress_bwd": ("triton", "buddy_tpu_torch/csrc/spec_loss.py",
