@@ -20,37 +20,26 @@
 // reduction without atomics, summed in a fixed order (bit-identical run to
 // run):
 //
-// * Two launches a pass.  The statistics kernel gives each CTA a slab of
-//   rows of one utterance (the slab count sized from the SM count); each
-//   thread keeps its channels' sums in registers over the whole slab and
-//   the CTA reduces them once, at the end, to per-group partials.  The
-//   second kernel forms the group statistics and the per-channel
-//   coefficients in its prologue from those partials and normalises (or
-//   forms dx); it walks the slabs in the reverse order, so that its first
-//   CTAs find the statistics pass's last rows still in the L2.  The
-//   backward's second kernel also sums d weight and d bias from per-channel
-//   partials, in extra CTAs, when they are asked for.
-// * One cooperative launch (L2 blocking, for tensors larger than the L2):
-//   a persistent grid walks the tensor in chunks of one utterance and a
-//   range of whole groups of channels (ops/groupnorm.py::l2_chunks sizes
-//   them to about half the L2); for each chunk every CTA reduces its rows,
-//   the grid meets at a barrier, and every CTA normalises the same rows
-//   while they are still in the L2.  Device memory then sees one read of x
-//   (of x and dy) and one write, which is what the bound counts.  The
-//   partials are double-buffered by chunk, so one barrier a chunk suffices.
-//   Measured on the H100 it is slower than the two launches at all four of
-//   the U-Net's shapes (PERF.md, Findings): the wrapper takes it only when
-//   asked.
+// two launches a pass.  The statistics kernel gives each CTA a slab of rows
+// of one utterance (the slab count sized from the SM count); each thread
+// keeps its channels' sums in registers over the whole slab and the CTA
+// reduces them once, at the end, to per-group partials.  The second kernel
+// forms the group statistics and the per-channel coefficients in its
+// prologue from those partials and normalises (or forms dx); it walks the
+// slabs in the reverse order, so that its first CTAs find the statistics
+// pass's last rows still in the L2.  The backward's second kernel also sums
+// d weight and d bias from per-channel partials, in extra CTAs, when they
+// are asked for.  (A persistent cooperative variant that walked the tensor
+// in L2-sized chunks was measured slower at all four of the U-Net's shapes:
+// PERF.md, Findings.)
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-// CTAs of kThreads an SM for the two-launch kernels (forward, backward;
-// their registers are capped to fit), and the cooperative kernels' CTAs
+// CTAs of kThreads an SM (forward, backward; their registers are capped to fit)
 constexpr int kThreads = 256, kFwdCtas = 4, kBwdCtas = 2;
-constexpr int kCoopThreads = 512, kCoopFwdCtas = 2, kCoopBwdCtas = 1;
 
 typedef __nv_bfloat16 bf16;
 
@@ -114,14 +103,14 @@ __device__ __forceinline__ float silu_grad(float u, float g) {
   return g * (s * (1.f + u * (1.f - s)));
 }
 
-// One CTA over rows [r0, r1) of one utterance and channels [c0, c0 + Cc):
-// thread t takes channels c0 + lane VEC.. of rows r0 + sub, r0 + sub + rpi,
-// ... (lane = t mod L, sub = t / L, L = Cc / VEC, rpi = threads / L).
+// One CTA over rows [r0, r1) of one utterance: thread t takes channels
+// lane VEC.. of rows r0 + sub, r0 + sub + rpi, ... (lane = t mod L,
+// sub = t / L, L = C / VEC, rpi = threads / L).
 struct Tile {
   int lane, sub, rpi;
   bool active;
-  __device__ Tile(int Cc, int vec) {
-    const int L = Cc / vec;
+  __device__ Tile(int C, int vec) {
+    const int L = C / vec;
     rpi = blockDim.x / L;
     lane = threadIdx.x % L;
     sub = threadIdx.x / L;
@@ -129,41 +118,39 @@ struct Tile {
   }
 };
 
-// The CTA's per-thread sums s[2][VEC] -> per-channel sums out[2][Cc] in
-// shared memory, in a fixed order (red: 2 rpi Cc floats of scratch).
+// The CTA's per-thread sums s[2][VEC] -> per-channel sums out[2][C] in
+// shared memory, in a fixed order (red: 2 rpi C floats of scratch).
 template <int VEC>
-__device__ void reduce_channels(const float (&s)[2][VEC], const Tile& t, int Cc, float* red,
+__device__ void reduce_channels(const float (&s)[2][VEC], const Tile& t, int C, float* red,
                                 float* out) {
   if (t.active) {
 #pragma unroll
     for (int i = 0; i < VEC; ++i) {
-      red[t.sub * Cc + t.lane * VEC + i] = s[0][i];
-      red[(t.rpi + t.sub) * Cc + t.lane * VEC + i] = s[1][i];
+      red[t.sub * C + t.lane * VEC + i] = s[0][i];
+      red[(t.rpi + t.sub) * C + t.lane * VEC + i] = s[1][i];
     }
   }
   __syncthreads();
-  for (int c = threadIdx.x; c < 2 * Cc; c += blockDim.x) {
-    const int k = c / Cc, ch = c - k * Cc;
-    const float* r = red + k * t.rpi * Cc + ch;
+  for (int c = threadIdx.x; c < 2 * C; c += blockDim.x) {
+    const int k = c / C, ch = c - k * C;
+    const float* r = red + k * t.rpi * C + ch;
     float acc = 0.f;
-    for (int j = 0; j < t.rpi; ++j) acc += r[j * Cc];
+    for (int j = 0; j < t.rpi; ++j) acc += r[j * C];
     out[c] = acc;
   }
   __syncthreads();
 }
 
-// Per-group sums over the Cc / gs groups of a channel range, from per-
-// channel sums ch[2][Cc] (weighted by w[c0 + c] when w is given) -> dst
-// (2 floats a group: [g][0], [g][1]).
-__device__ void write_group_partials(const float* ch, int Cc, int gs, const float* w, int c0,
-                                     float* dst) {
-  const int Gc = Cc / gs;
-  for (int i = threadIdx.x; i < 2 * Gc; i += blockDim.x) {
+// Per-group sums over the C / gs groups, from per-channel sums ch[2][C]
+// (weighted by w[c] when w is given) -> dst (2 floats a group: [g][0], [g][1]).
+__device__ void write_group_partials(const float* ch, int C, int gs, const float* w, float* dst) {
+  const int G = C / gs;
+  for (int i = threadIdx.x; i < 2 * G; i += blockDim.x) {
     const int g = i >> 1, k = i & 1;
     float acc = 0.f;
     for (int j = 0; j < gs; ++j) {
       const int c = g * gs + j;
-      acc += w ? w[c0 + c] * ch[k * Cc + c] : ch[k * Cc + c];
+      acc += w ? w[c] * ch[k * C + c] : ch[k * C + c];
     }
     dst[i] = acc;
   }
@@ -203,46 +190,46 @@ __device__ void sum_partials(const float* src, int n_parts, long stride, int nv,
   __syncthreads();
 }
 
-// mean and rstd of Gc groups from their sums (s1, s2) -> ms[2 Gc]; the
-// per-channel a = rstd w, sh = bias - mean a of Cc channels -> a_s, sh_s.
-__device__ void forward_coefficients(const float* gsum, int Gc, int gs, float count, float eps,
-                                     const float* w, const float* bias, int c0, float* ms,
-                                     float* a_s, float* sh_s) {
-  for (int g = threadIdx.x; g < Gc; g += blockDim.x) {
+// mean and rstd of G groups from their sums (s1, s2) -> ms[2 G]; the
+// per-channel a = rstd w, sh = bias - mean a -> a_s, sh_s.
+__device__ void forward_coefficients(const float* gsum, int G, int gs, float count, float eps,
+                                     const float* w, const float* bias, float* ms, float* a_s,
+                                     float* sh_s) {
+  for (int g = threadIdx.x; g < G; g += blockDim.x) {
     const float m = gsum[2 * g] / count;
     const float m2 = gsum[2 * g + 1] / count;
     ms[2 * g] = m;
     ms[2 * g + 1] = rsqrtf(m2 - m * m + eps);
   }
   __syncthreads();
-  for (int c = threadIdx.x; c < Gc * gs; c += blockDim.x) {
+  for (int c = threadIdx.x; c < G * gs; c += blockDim.x) {
     const int g = c / gs;
-    const float a = ms[2 * g + 1] * w[c0 + c];
+    const float a = ms[2 * g + 1] * w[c];
     a_s[c] = a;
-    sh_s[c] = bias[c0 + c] - ms[2 * g] * a;
+    sh_s[c] = bias[c] - ms[2 * g] * a;
   }
   __syncthreads();
 }
 
-// a and sh of Cc channels from the forward's mean and rstd (mr: 2 floats a
+// a and sh of C channels from the forward's mean and rstd (mr: 2 floats a
 // group of the utterance).
-__device__ void affine_from_stats(const float* mr, int Cc, int gs, const float* w,
-                                  const float* bias, int c0, float* a_s, float* sh_s) {
-  for (int c = threadIdx.x; c < Cc; c += blockDim.x) {
-    const int g = (c0 + c) / gs;
-    const float a = mr[2 * g + 1] * w[c0 + c];
+__device__ void affine_from_stats(const float* mr, int C, int gs, const float* w,
+                                  const float* bias, float* a_s, float* sh_s) {
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    const int g = c / gs;
+    const float a = mr[2 * g + 1] * w[c];
     a_s[c] = a;
-    sh_s[c] = bias[c0 + c] - mr[2 * g] * a;
+    sh_s[c] = bias[c] - mr[2 * g] * a;
   }
   __syncthreads();
 }
 
-// c2, c3 of Gc groups (-> cc[2 Gc]) from the weighted sums (A1 = sum w du,
+// c2, c3 of G groups (-> cc[2 G]) from the weighted sums (A1 = sum w du,
 // A2 = sum w du x) and the group's mean and rstd.
-__device__ void backward_coefficients(const float* gsum, const float* mr, int Gc, int g0,
-                                      float count, float* cc) {
-  for (int g = threadIdx.x; g < Gc; g += blockDim.x) {
-    const float mean = mr[2 * (g0 + g)], rstd = mr[2 * (g0 + g) + 1];
+__device__ void backward_coefficients(const float* gsum, const float* mr, int G, float count,
+                                      float* cc) {
+  for (int g = threadIdx.x; g < G; g += blockDim.x) {
+    const float mean = mr[2 * g], rstd = mr[2 * g + 1];
     const float m1 = gsum[2 * g] / count;
     const float m2 = rstd * (gsum[2 * g + 1] - mean * gsum[2 * g]) / count;
     cc[2 * g] = -rstd * rstd * m2;
@@ -252,7 +239,7 @@ __device__ void backward_coefficients(const float* gsum, const float* mr, int Gc
 }
 
 // ---------------------------------------------------------------------------
-// the passes over a tile of rows: x points at (b, row 0, channel c0)
+// the passes over a tile of rows: x points at (b, row 0, channel 0)
 // ---------------------------------------------------------------------------
 template <class T, int VEC>
 __device__ void stats_rows(const T* x, int C, int r0, int r1, const Tile& t, float (&s)[2][VEC]) {
@@ -396,9 +383,9 @@ struct Shape {
   float count, eps;
 };
 
-// shared memory of a kernel over C channels (Cc for the cooperative ones) and
-// G groups, in bytes: reduce_channels' scratch and channel sums, a and sh,
-// the groups' sums and statistics, and a float a thread
+// shared memory of a kernel over C channels and G groups, in bytes:
+// reduce_channels' scratch and channel sums, a and sh, the groups' sums and
+// statistics, and a float a thread
 inline size_t smem_bytes(int C, int G, int threads, int vec) {
   return sizeof(float) * ((size_t)2 * threads * vec + 4 * C + 4 * G + threads);
 }
@@ -419,7 +406,7 @@ gn_stats_kernel(const T* __restrict__ x, float* __restrict__ part, Shape sh) {
                      t, acc);
   float* ch = sm + 2 * t.rpi * sh.C;
   reduce_channels<VEC>(acc, t, sh.C, sm, ch);
-  write_group_partials(ch, sh.C, sh.gs, nullptr, 0, part + ((size_t)b * sh.S + s) * sh.G * 2);
+  write_group_partials(ch, sh.C, sh.gs, nullptr, part + ((size_t)b * sh.S + s) * sh.G * 2);
 }
 
 // y = act(x a + sh); the statistics from part; mr[b][G][2] = (mean, rstd)
@@ -435,7 +422,7 @@ gn_apply_kernel(const T* __restrict__ x, T* __restrict__ y, const float* __restr
         *scratch = ms + 2 * sh.G;
   const int s = sh.S - 1 - blockIdx.x, b = sh.B - 1 - blockIdx.y;
   sum_partials(part + (size_t)b * sh.S * sh.G * 2, sh.S, sh.G * 2, sh.G * 2, scratch, gsum);
-  forward_coefficients(gsum, sh.G, sh.gs, sh.count, sh.eps, w, bias, 0, ms, a_s, sh_s);
+  forward_coefficients(gsum, sh.G, sh.gs, sh.count, sh.eps, w, bias, ms, a_s, sh_s);
   if (s == 0)
     for (int i = threadIdx.x; i < 2 * sh.G; i += blockDim.x) mr[(size_t)b * sh.G * 2 + i] = ms[i];
   const Tile t(sh.C, VEC);
@@ -458,7 +445,7 @@ gn_bwd_stats_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   const Tile t(sh.C, VEC);
   float* a_s = sm + 2 * t.rpi * sh.C + 2 * sh.C;   // past the reduction's scratch
   float* sh_s = a_s + sh.C;
-  affine_from_stats(mr + (size_t)b * sh.G * 2, sh.C, sh.gs, w, bias, 0, a_s, sh_s);
+  affine_from_stats(mr + (size_t)b * sh.G * 2, sh.C, sh.gs, w, bias, a_s, sh_s);
   const size_t base = (size_t)b * sh.HW * sh.C;
   float acc[2][VEC];
   bwd_stats_rows<T, VEC>(x + base, dy + base, sh.C, s * sh.RS, min(sh.HW, (s + 1) * sh.RS), t,
@@ -466,29 +453,26 @@ gn_bwd_stats_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   float* ch = sm + 2 * t.rpi * sh.C;
   reduce_channels<VEC>(acc, t, sh.C, sm, ch);
   const size_t slab = (size_t)b * sh.S + s;
-  write_group_partials(ch, sh.C, sh.gs, w, 0, pg + slab * sh.G * 2);
+  write_group_partials(ch, sh.C, sh.gs, w, pg + slab * sh.G * 2);
   if (pc)
     for (int i = threadIdx.x; i < 2 * sh.C; i += blockDim.x) pc[slab * 2 * sh.C + i] = ch[i];
 }
 
 // d weight[c] = sum_b rstd (sum du x - mean sum du), d bias[c] = sum_b sum du
-// for the 32 channels [c0, c0 + 32), from per-channel partials in rows of
-// W channels: (sum du, sum du x) of channel c of utterance b, part p at
-// pc[((b per_b + c / W) n_parts + p) 2 W + {0, W} + c mod W] (two launches:
-// W = C, per_b = 1, a part a slab; cooperative: W = Cc, a part a CTA).
-// scratch: 2 blockDim floats.
-__device__ void weight_grads(const float* pc, int n_parts, int W, int per_b, const float* mr,
-                             int B, int C, int gs, int c0, float* scratch, float* dw, float* db) {
+// for the 32 channels [c0, c0 + 32), from the per-channel partials
+// pc[b][s][2][C] = (sum du, sum du x) of slab s.  scratch: 2 blockDim floats.
+__device__ void weight_grads(const float* pc, int S, const float* mr, int B, int C, int gs,
+                             int c0, float* scratch, float* dw, float* db) {
   const int c = c0 + (threadIdx.x & 31), rows = blockDim.x / 32, bb = threadIdx.x / 32;
   const int G = C / gs;
   float sw = 0.f, sb = 0.f;
   if (c < C) {
     for (int b = bb; b < B; b += rows) {
-      const float* p = pc + ((size_t)(b * per_b + c / W) * n_parts) * 2 * W + c % W;
+      const float* p = pc + (size_t)b * S * 2 * C + c;
       float du = 0.f, dux = 0.f;
-      for (int s = 0; s < n_parts; ++s) {
-        du += p[(size_t)s * 2 * W];
-        dux += p[(size_t)s * 2 * W + W];
+      for (int s = 0; s < S; ++s) {
+        du += p[(size_t)s * 2 * C];
+        dux += p[(size_t)s * 2 * C + C];
       }
       const float* m = mr + ((size_t)b * G + c / gs) * 2;
       sw += m[1] * (dux - m[0] * du);
@@ -522,7 +506,7 @@ gn_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* __rest
   float* sm = reinterpret_cast<float*>(smem_f4);
   const int tiles = sh.B * sh.S;
   if ((int)blockIdx.x >= tiles) {
-    weight_grads(pc, sh.S, sh.C, 1, mr, sh.B, sh.C, sh.gs, (blockIdx.x - tiles) * 32, sm, dw, db);
+    weight_grads(pc, sh.S, mr, sh.B, sh.C, sh.gs, (blockIdx.x - tiles) * 32, sm, dw, db);
     return;
   }
   const int tile = tiles - 1 - blockIdx.x;
@@ -530,221 +514,88 @@ gn_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* __rest
   float *a_s = sm, *sh_s = sm + sh.C, *gsum = sm + 2 * sh.C, *cc = gsum + 2 * sh.G,
         *scratch = cc + 2 * sh.G;
   const float* mrb = mr + (size_t)b * sh.G * 2;
-  affine_from_stats(mrb, sh.C, sh.gs, w, bias, 0, a_s, sh_s);
+  affine_from_stats(mrb, sh.C, sh.gs, w, bias, a_s, sh_s);
   sum_partials(pg + (size_t)b * sh.S * sh.G * 2, sh.S, sh.G * 2, sh.G * 2, scratch, gsum);
-  backward_coefficients(gsum, mrb, sh.G, 0, sh.count, cc);
+  backward_coefficients(gsum, mrb, sh.G, sh.count, cc);
   const Tile t(sh.C, VEC);
   const size_t base = (size_t)b * sh.HW * sh.C;
   bwd_apply_rows<T, VEC>(x + base, dy + base, dx + base, sh.C, s * sh.RS,
                          min(sh.HW, (s + 1) * sh.RS), t, a_s, sh_s, cc, sh.gs, act);
 }
 
-// ---------------------------------------------------------------------------
-// one cooperative launch: chunks of (utterance, Cc channels) walked in L2
-// ---------------------------------------------------------------------------
-// bar[0] counts arrivals, bar[1] the generation; both persist across
-// launches (arrivals return to 0 at every barrier)
-__device__ void grid_sync(unsigned* bar) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    volatile unsigned* gen = bar + 1;
-    const unsigned g = *gen;
-    __threadfence();
-    if (atomicAdd(bar, 1u) == gridDim.x - 1) {
-      atomicExch(bar, 0u);
-      __threadfence();
-      atomicAdd(bar + 1, 1u);
-    } else {
-      while (*gen == g) __nanosleep(64);
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
-struct Chunks {
-  int Cc, per_b, n;                      // channels a chunk, chunks an utterance, chunks
-  int RC;                                // rows a CTA in a chunk
-};
-
-// part[2][grid][Gc][2]; mr[b][G][2] written by CTA 0
-template <class T, int VEC>
-__global__ void __launch_bounds__(kCoopThreads, kCoopFwdCtas)
-gn_coop_kernel(const T* __restrict__ x, T* __restrict__ y, const float* __restrict__ w,
-               const float* __restrict__ bias, float* __restrict__ mr, float* part,
-               unsigned* bar, Shape sh, Chunks ck, int act) {
-  extern __shared__ float4 smem_f4[];
-  float* sm = reinterpret_cast<float*>(smem_f4);
-  const int Gc = ck.Cc / sh.gs;
-  const Tile t(ck.Cc, VEC);
-  float* ch = sm + 2 * t.rpi * ck.Cc;
-  float *a_s = sm, *sh_s = sm + ck.Cc, *gsum = sm + 2 * ck.Cc, *ms = gsum + 2 * Gc,
-        *scratch = ms + 2 * Gc;
-  const int r0 = blockIdx.x * ck.RC, r1 = min(sh.HW, r0 + ck.RC);
-  for (int k = 0; k < ck.n; ++k) {
-    const int b = k / ck.per_b, c0 = (k - b * ck.per_b) * ck.Cc;
-    const size_t base = (size_t)b * sh.HW * sh.C + c0;
-    float* pk = part + (size_t)(k & 1) * gridDim.x * Gc * 2;
-    float acc[2][VEC];
-    stats_rows<T, VEC>(x + base, sh.C, r0, r1, t, acc);
-    reduce_channels<VEC>(acc, t, ck.Cc, sm, ch);
-    write_group_partials(ch, ck.Cc, sh.gs, nullptr, 0, pk + (size_t)blockIdx.x * Gc * 2);
-    grid_sync(bar);
-    sum_partials(pk, gridDim.x, Gc * 2, Gc * 2, scratch, gsum);
-    forward_coefficients(gsum, Gc, sh.gs, sh.count, sh.eps, w, bias, c0, ms, a_s, sh_s);
-    if (blockIdx.x == 0)
-      for (int i = threadIdx.x; i < 2 * Gc; i += blockDim.x)
-        mr[((size_t)b * sh.G + c0 / sh.gs) * 2 + i] = ms[i];
-    apply_rows<T, VEC>(x + base, y + base, sh.C, r0, r1, t, a_s, sh_s, act);
-    __syncthreads();
-  }
-}
-
-// pg[2][grid][Gc][2]; pc[chunk][grid][2][Cc] when d weight is asked for,
-// summed after a last barrier, 32 channels a CTA
-template <class T, int VEC>
-__global__ void __launch_bounds__(kCoopThreads, kCoopBwdCtas)
-gn_bwd_coop_kernel(const T* __restrict__ x, const T* __restrict__ dy, T* __restrict__ dx,
-                   const float* __restrict__ w, const float* __restrict__ bias,
-                   const float* __restrict__ mr, float* pg, float* pc, float* __restrict__ dw,
-                   float* __restrict__ db, unsigned* bar, Shape sh, Chunks ck, int act) {
-  extern __shared__ float4 smem_f4[];
-  float* sm = reinterpret_cast<float*>(smem_f4);
-  const int Gc = ck.Cc / sh.gs;
-  const Tile t(ck.Cc, VEC);
-  float* ch = sm + 2 * t.rpi * ck.Cc;
-  float* a_s = ch + 2 * ck.Cc;           // past the reduction's scratch: kept across it
-  float* sh_s = a_s + ck.Cc;
-  float *gsum = sh_s + ck.Cc, *cc = gsum + 2 * Gc, *scratch = cc + 2 * Gc;
-  const int r0 = blockIdx.x * ck.RC, r1 = min(sh.HW, r0 + ck.RC);
-  for (int k = 0; k < ck.n; ++k) {
-    const int b = k / ck.per_b, c0 = (k - b * ck.per_b) * ck.Cc;
-    const size_t base = (size_t)b * sh.HW * sh.C + c0;
-    const float* mrb = mr + (size_t)b * sh.G * 2;
-    float* pk = pg + (size_t)(k & 1) * gridDim.x * Gc * 2;
-    affine_from_stats(mrb, ck.Cc, sh.gs, w, bias, c0, a_s, sh_s);
-    float acc[2][VEC];
-    bwd_stats_rows<T, VEC>(x + base, dy + base, sh.C, r0, r1, t, a_s, sh_s, act, acc);
-    reduce_channels<VEC>(acc, t, ck.Cc, sm, ch);
-    write_group_partials(ch, ck.Cc, sh.gs, w, c0, pk + (size_t)blockIdx.x * Gc * 2);
-    if (pc)
-      for (int i = threadIdx.x; i < 2 * ck.Cc; i += blockDim.x)
-        pc[((size_t)k * gridDim.x + blockIdx.x) * 2 * ck.Cc + i] = ch[i];
-    grid_sync(bar);
-    sum_partials(pk, gridDim.x, Gc * 2, Gc * 2, scratch, gsum);
-    backward_coefficients(gsum, mrb, Gc, c0 / sh.gs, sh.count, cc);
-    bwd_apply_rows<T, VEC>(x + base, dy + base, dx + base, sh.C, r0, r1, t, a_s, sh_s, cc, sh.gs,
-                           act);
-    __syncthreads();
-  }
-  if (dw == nullptr) return;
-  grid_sync(bar);
-  for (int c0 = blockIdx.x * 32; c0 < sh.C; c0 += gridDim.x * 32)
-    weight_grads(pc, gridDim.x, ck.Cc, ck.per_b, mr, sh.B, sh.C, sh.gs, c0, sm, dw, db);
-}
-
 template <class T, int VEC>
 int forward_t(const void* xv, void* yv, const float* w, const float* bias, float* mr, float* part,
-              unsigned* bar, Shape sh, Chunks ck, int grid, int act, cudaStream_t stream) {
+              Shape sh, int act, cudaStream_t stream) {
   const T* x = reinterpret_cast<const T*>(xv);
   T* y = reinterpret_cast<T*>(yv);
-  if (ck.n == 0) {
-    const size_t smem = smem_bytes(sh.C, sh.G, kThreads, VEC);
-    gn_stats_kernel<T, VEC><<<dim3(sh.S, sh.B), kThreads, smem, stream>>>(x, part, sh);
-    const int err = (int)cudaGetLastError();
-    if (err) return err;
-    gn_apply_kernel<T, VEC><<<dim3(sh.S, sh.B), kThreads, smem, stream>>>(x, y, part, w, bias, mr,
-                                                                          sh, act);
-    return (int)cudaGetLastError();
-  }
-  void* args[] = {&x, &y, &w, &bias, &mr, &part, &bar, &sh, &ck, &act};
-  return (int)cudaLaunchCooperativeKernel((const void*)gn_coop_kernel<T, VEC>, dim3(grid),
-                                          dim3(kCoopThreads), args,
-                                          smem_bytes(ck.Cc, ck.Cc / sh.gs, kCoopThreads, VEC),
-                                          stream);
+  const size_t smem = smem_bytes(sh.C, sh.G, kThreads, VEC);
+  gn_stats_kernel<T, VEC><<<dim3(sh.S, sh.B), kThreads, smem, stream>>>(x, part, sh);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  gn_apply_kernel<T, VEC><<<dim3(sh.S, sh.B), kThreads, smem, stream>>>(x, y, part, w, bias, mr,
+                                                                        sh, act);
+  return (int)cudaGetLastError();
 }
 
 template <class T, int VEC>
 int backward_t(const void* xv, const void* dyv, void* dxv, const float* w, const float* bias,
-               const float* mr, float* pg, float* pc, float* dw, float* db, unsigned* bar,
-               Shape sh, Chunks ck, int grid, int act, cudaStream_t stream) {
+               const float* mr, float* pg, float* pc, float* dw, float* db, Shape sh, int act,
+               cudaStream_t stream) {
   const T* x = reinterpret_cast<const T*>(xv);
   const T* dy = reinterpret_cast<const T*>(dyv);
   T* dx = reinterpret_cast<T*>(dxv);
-  if (ck.n == 0) {
-    const size_t smem = smem_bytes(sh.C, sh.G, kThreads, VEC);
-    gn_bwd_stats_kernel<T, VEC><<<dim3(sh.S, sh.B), kThreads, smem, stream>>>(
-        x, dy, w, bias, mr, pg, dw ? pc : nullptr, sh, act);
-    const int err = (int)cudaGetLastError();
-    if (err) return err;
-    const int extra = dw ? (sh.C + 31) / 32 : 0;
-    gn_bwd_apply_kernel<T, VEC><<<sh.B * sh.S + extra, kThreads, smem, stream>>>(
-        x, dy, dx, w, bias, mr, pg, pc, dw, db, sh, act);
-    return (int)cudaGetLastError();
-  }
-  if (!dw) pc = nullptr;
-  void* args[] = {&x, &dy, &dx, &w, &bias, &mr, &pg, &pc, &dw, &db, &bar, &sh, &ck, &act};
-  return (int)cudaLaunchCooperativeKernel((const void*)gn_bwd_coop_kernel<T, VEC>, dim3(grid),
-                                          dim3(kCoopThreads), args,
-                                          smem_bytes(ck.Cc, ck.Cc / sh.gs, kCoopThreads, VEC),
-                                          stream);
+  const size_t smem = smem_bytes(sh.C, sh.G, kThreads, VEC);
+  gn_bwd_stats_kernel<T, VEC><<<dim3(sh.S, sh.B), kThreads, smem, stream>>>(
+      x, dy, w, bias, mr, pg, dw ? pc : nullptr, sh, act);
+  const int err = (int)cudaGetLastError();
+  if (err) return err;
+  const int extra = dw ? (sh.C + 31) / 32 : 0;
+  gn_bwd_apply_kernel<T, VEC><<<sh.B * sh.S + extra, kThreads, smem, stream>>>(
+      x, dy, dx, w, bias, mr, pg, pc, dw, db, sh, act);
+  return (int)cudaGetLastError();
 }
 
-// The shapes, or false where the kernels do not take them: C a multiple of
-// G, a row of lanes within a CTA, chunks (Cc > 0) of whole groups dividing
-// C, and a row range for every CTA of the cooperative grid.
-bool make_shape(int B, int HW, int C, int G, int S, int RS, float eps, int Cc, int grid, int vec,
-                Shape* sh, Chunks* ck) {
+// The shape, or false where the kernels do not take it: C a multiple of G
+// and of the vector, a row of lanes within a CTA, slabs covering the rows.
+bool make_shape(int B, int HW, int C, int G, int S, int RS, float eps, int vec, Shape* sh) {
   if (B < 1 || HW < 1 || C < 1 || G < 1 || C % G || S < 1 || RS < 1 || (long)S * RS < HW ||
       C % vec || C / vec > kThreads)
     return false;
   *sh = Shape{B, HW, C, G, C / G, S, RS, (float)HW * (C / G), eps};
-  *ck = Chunks{0, 0, 0, 0};
-  if (Cc > 0) {
-    if (C % Cc || Cc % sh->gs || Cc % vec || Cc / vec > kCoopThreads || grid < 1) return false;
-    *ck = Chunks{Cc, C / Cc, B * (C / Cc), (HW + grid - 1) / grid};
-  }
   return true;
 }
 
 }  // namespace
 
 // x, y: (B, HW, C) bfloat16 (bf16 = 1) or float32; w, bias: (C,) float32;
-// mr: (B, G, 2) mean and rstd out; part: two launches (Cc = 0) (B, S, G, 2),
-// cooperative (2, grid, Cc / (C / G), 2); bar: the grid barrier's two words.
+// mr: (B, G, 2) mean and rstd out; part: (B, S, G, 2) scratch.
 extern "C" int gn_forward(const void* x, void* y, const float* w, const float* bias, float* mr,
-                          float* part, unsigned* bar, int B, int HW, int C, int G, int S, int RS,
-                          float eps, int Cc, int grid, int bf16_io, int act,
-                          cudaStream_t stream) {
+                          float* part, int B, int HW, int C, int G, int S, int RS, float eps,
+                          int bf16_io, int act, cudaStream_t stream) {
   const int wide = bf16_io ? 8 : 4;
-  const int vec = C % wide == 0 && (Cc == 0 || Cc % wide == 0) ? wide : 1;
+  const int vec = C % wide == 0 ? wide : 1;
   Shape sh;
-  Chunks ck;
-  if (!make_shape(B, HW, C, G, S, RS, eps, Cc, grid, vec, &sh, &ck))
-    return (int)cudaErrorInvalidValue;
+  if (!make_shape(B, HW, C, G, S, RS, eps, vec, &sh)) return (int)cudaErrorInvalidValue;
   if (bf16_io)
-    return vec == 8 ? forward_t<bf16, 8>(x, y, w, bias, mr, part, bar, sh, ck, grid, act, stream)
-                    : forward_t<bf16, 1>(x, y, w, bias, mr, part, bar, sh, ck, grid, act, stream);
-  return vec == 4 ? forward_t<float, 4>(x, y, w, bias, mr, part, bar, sh, ck, grid, act, stream)
-                  : forward_t<float, 1>(x, y, w, bias, mr, part, bar, sh, ck, grid, act, stream);
+    return vec == 8 ? forward_t<bf16, 8>(x, y, w, bias, mr, part, sh, act, stream)
+                    : forward_t<bf16, 1>(x, y, w, bias, mr, part, sh, act, stream);
+  return vec == 4 ? forward_t<float, 4>(x, y, w, bias, mr, part, sh, act, stream)
+                  : forward_t<float, 1>(x, y, w, bias, mr, part, sh, act, stream);
 }
 
 // dx from x, dy and the forward's mr; dw, db: (C,) float32, or null when
-// not asked for (pc is then not written).  pg: (B, S, G, 2) or (2, grid,
-// Cc / (C / G), 2); pc: (B, S, 2, C) or (B C / Cc, grid, 2, Cc).
+// not asked for (pc is then not written).  pg: (B, S, G, 2) and pc:
+// (B, S, 2, C) scratch.
 extern "C" int gn_backward(const void* x, const void* dy, void* dx, const float* w,
                            const float* bias, const float* mr, float* pg, float* pc, float* dw,
-                           float* db, unsigned* bar, int B, int HW, int C, int G, int S, int RS,
-                           int Cc, int grid, int bf16_io, int act, cudaStream_t stream) {
+                           float* db, int B, int HW, int C, int G, int S, int RS, int bf16_io,
+                           int act, cudaStream_t stream) {
   const int wide = bf16_io ? 8 : 4;
-  const int vec = C % wide == 0 && (Cc == 0 || Cc % wide == 0) ? wide : 1;
+  const int vec = C % wide == 0 ? wide : 1;
   Shape sh;
-  Chunks ck;
-  if (!make_shape(B, HW, C, G, S, RS, 0.f, Cc, grid, vec, &sh, &ck) ||
-      (dw == nullptr) != (db == nullptr))
+  if (!make_shape(B, HW, C, G, S, RS, 0.f, vec, &sh) || (dw == nullptr) != (db == nullptr))
     return (int)cudaErrorInvalidValue;
-#define BWD(T, V) \
-  backward_t<T, V>(x, dy, dx, w, bias, mr, pg, pc, dw, db, bar, sh, ck, grid, act, stream)
+#define BWD(T, V) backward_t<T, V>(x, dy, dx, w, bias, mr, pg, pc, dw, db, sh, act, stream)
   if (bf16_io) return vec == 8 ? BWD(bf16, 8) : BWD(bf16, 1);
   return vec == 4 ? BWD(float, 4) : BWD(float, 1);
 #undef BWD

@@ -33,7 +33,7 @@
 // asynchronously (cp.async: the spectrum arrives while the first transform
 // runs); the first stage reads them there (zero outside a row's support),
 // the stages run in shared memory (fft.cuh, frames padded against bank
-// conflicts as ops/fft_plan.py::smem_wavefronts models them), the product
+// conflicts by ops/fft_plan.py::pad_shift), the product
 // is formed there, the inverse runs the forward stages on the conjugate
 // (its last stage stores only the outputs that are kept), and each row's
 // outputs go out as one contiguous run.  There are no atomics: results are bit-identical run

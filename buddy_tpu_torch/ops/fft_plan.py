@@ -45,50 +45,14 @@ def fft_radices(m: int):
     return radices
 
 
-def _padded(i, shift):
-    return i + (i >> shift)
-
-
-def smem_wavefronts(n: int, shift: int, threads: int = 256) -> int:
-    """Shared-memory wavefronts of one pass of the kernels' stages over the
-    frames of a CTA of ``threads``, with frames padded by ``shift``: every
-    warp's 8-byte loads and stores, a wavefront per half-warp for each
-    address sharing a bank with another (a model of the bank conflicts)."""
-    FS = _padded(n - 1, shift) + 1
-    total, Ns = 0, 1
-
-    def cost(addresses):
-        waves = 0
-        for h in range(0, len(addresses), 16):
-            banks = {}
-            for a in set(addresses[h:h + 16]):
-                for b in (2 * a % 32, (2 * a + 1) % 32):
-                    banks.setdefault(b, set()).add(a)
-            waves += max(len(v) for v in banks.values())
-        return waves
-
-    for R in fft_radices(n):
-        nb = n // R
-        lanes = [(t // nb, t % nb) for t in range(threads // nb * nb)] if nb < threads else \
-            [(0, t) for t in range(threads)]
-        for w in range(0, len(lanes), 32):
-            warp = lanes[w:w + 32]
-            for r in range(R):
-                total += cost([fr * FS + _padded(j + r * nb, shift) for fr, j in warp])
-                total += cost([fr * FS + _padded((j - j % Ns) * R + j % Ns + r * Ns, shift)
-                               for fr, j in warp])
-        Ns *= R
-    return total
-
-
-@lru_cache(maxsize=None)
 def pad_shift(m: int) -> int:
     """Bank-conflict padding of a frame of m points in shared memory, as the
-    shift of ``padded(i) = i + (i >> shift)``: the one of fewest modelled
-    wavefronts (``smem_wavefronts``).  One float2 in 16 for powers of two
-    and for K3's 640 = 8 8 2 5 (half the wavefronts of none), none (30) for
-    K2's 255 = 3 5 17, where padding only adds conflicts."""
-    return min((4, 30, 5, 3, 2), key=lambda shift: smem_wavefronts(m, shift))
+    shift of ``padded(i) = i + (i >> shift)``: one float2 in 16 for even m,
+    none (shift 30) for odd m.  At the lengths the kernels run (K2's 512, 256
+    and 255 = 3 5 17, K3's 640 = 8 8 2 5) a model of the stages' bank
+    conflicts (tests/test_torch_subband_plan.py) agrees: the padding halves
+    the wavefronts of the even ones, and only adds conflicts at 255."""
+    return 4 if m % 2 == 0 else 30
 
 
 def stage_tables(radices):

@@ -7,12 +7,10 @@ SiLU when asked.  Input is NCHW; the kernels want it in channels_last memory
 format, which is how the U-Net keeps its activations.
 
 K1 is one C call a pass, forward (``group_norm_act``) and backward
-(``group_norm_act_backward``), each counting its calls: two launches (the
+(``group_norm_act_backward``), each counting its calls: two launches, the
 statistics of row slabs, then the coefficients formed in the second
-kernel's prologue and the normalise or dx pass), or, when asked
-(``L2_BLOCKING``), one cooperative launch that walks the tensor in chunks
-of whole groups (``l2_chunks``) that stay in the L2 between the statistics
-and the normalise.  Nothing runs between the launches.  The plain functions below
+kernel's prologue and the normalise or dx pass.  Nothing runs between the
+launches.  The plain functions below
 spell out the kernels' algebra on their partial sums; CPU tensors take the
 plain version (autograd differentiates it), CUDA tensors launch the kernels
 or raise.
@@ -28,21 +26,14 @@ import torch.nn.functional as F
 
 from buddy_tpu_torch.ops import _build
 
-SLABS_PER_SM = 4        # statistics CTAs an SM over the batch (two launches)
+SLABS_PER_SM = 4        # statistics CTAs an SM over the batch
 MIN_SLAB_ROWS = 64      # fewest rows a statistics CTA reduces
-# CTAs an SM of the cooperative kernels, forward and backward
-# (csrc/groupnorm.cu kCoopFwdCtas, kCoopBwdCtas), by tensors read
-_COOP_CTAS_PER_SM = {1: 2, 2: 1}
 
 _I, _P, _F = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
 _SIGNATURES = {
-    "gn_forward": [_P] * 7 + [_I] * 6 + [_F] + [_I] * 4 + [_P],
-    "gn_backward": [_P] * 11 + [_I] * 10 + [_P],
+    "gn_forward": [_P] * 6 + [_I] * 6 + [_F] + [_I] * 2 + [_P],
+    "gn_backward": [_P] * 10 + [_I] * 8 + [_P],
 }
-# the cooperative L2-blocked launch instead of two launches: measured slower
-# at all four of the U-Net's shapes on the H100 (PERF.md, Findings), so off;
-# a call may still ask for it (``l2=True``)
-L2_BLOCKING = False
 
 
 # ---------------------------------------------------------------------------
@@ -84,27 +75,6 @@ def slab_schedule(B: int, HW: int, sms: int):
     S = max(1, min(-(-HW // MIN_SLAB_ROWS), -(-SLABS_PER_SM * sms // B)))
     RS = -(-HW // S)
     return -(-HW // RS), RS
-
-
-def l2_chunks(C: int, G: int, HW: int, elem_bytes: int, streams: int, l2_bytes: int) -> int:
-    """Channels a chunk of the cooperative kernel: the widest whole number of
-    groups that divides C (a multiple of the 16-byte vector where C is one)
-    whose reads, ``streams`` tensors of HW rows (x; x and dy), take at most
-    half the L2; 0 where not even one group fits."""
-    gs, vec = C // G, 16 // elem_bytes
-    for Cc in range(C, 0, -gs):
-        if C % Cc or (C % vec == 0 and Cc % vec):
-            continue
-        if streams * HW * Cc * elem_bytes <= l2_bytes // 2:
-            return Cc
-    return 0
-
-
-def chunk_schedule(B: int, C: int, Cc: int):
-    """The cooperative kernel's chunks in order: (utterance, first channel)
-    of chunk k, as ``csrc/groupnorm.cu`` walks them."""
-    per_b = C // Cc
-    return [(k // per_b, (k % per_b) * Cc) for k in range(B * per_b)]
 
 
 def _slabs(t: torch.Tensor, S: int, RS: int) -> torch.Tensor:
@@ -189,49 +159,31 @@ def _check(x: torch.Tensor) -> None:
 
 
 @lru_cache(maxsize=None)
-def _device_info(device: torch.device):
-    """(SM count, L2 bytes, the cooperative kernels' grid barrier) of a card."""
-    props = torch.cuda.get_device_properties(device)
-    return (props.multi_processor_count, props.L2_cache_size,
-            torch.zeros(2, dtype=torch.int32, device=device))
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
-def _schedule(x: torch.Tensor, G: int, streams: int, l2):
-    """(S, RS, Cc, grid) of a call: Cc = 0 for two launches."""
-    B, C, H, W = x.shape
-    HW = H * W
-    sms, l2_bytes, _ = _device_info(x.device)
-    S, RS = slab_schedule(B, HW, sms)
-    if l2 is None:
-        l2 = L2_BLOCKING
-    Cc = l2_chunks(C, G, HW, x.element_size(), streams, l2_bytes) if l2 else 0
-    return S, RS, Cc, _COOP_CTAS_PER_SM[streams] * sms
-
-
-def _launch_forward(x, weight, bias, num_groups: int, eps: float, silu: bool, l2=None):
+def _launch_forward(x, weight, bias, num_groups: int, eps: float, silu: bool):
     """K1 forward: (y NCHW in channels_last memory, mr (B, G, 2) = mean, rstd)."""
     _check(x)
     B, C, H, W = x.shape
     G = num_groups
-    S, RS, Cc, grid = _schedule(x, G, 1, l2)
+    S, RS = slab_schedule(B, H * W, _sm_count(x.device))
     xv = _as_bhwc(x)
     w, b = weight.float().contiguous(), bias.float().contiguous()
     mr = torch.empty((B, G, 2), device=x.device, dtype=torch.float32)
-    part = torch.empty((2 * grid * (Cc // (C // G)) * 2) if Cc else (B * S * G * 2),
-                       device=x.device, dtype=torch.float32)
+    part = torch.empty(B * S * G * 2, device=x.device, dtype=torch.float32)
     y = torch.empty_like(xv)
     lib = _build.load("groupnorm", _SIGNATURES)
     err = lib.gn_forward(_build.ptr(xv), _build.ptr(y), _build.ptr(w), _build.ptr(b),
-                         _build.ptr(mr), _build.ptr(part), _build.ptr(_device_info(x.device)[2]),
-                         B, H * W, C, G, S, RS, eps, Cc, grid, int(x.dtype == torch.bfloat16),
-                         int(silu), _build.stream(x.device))
+                         _build.ptr(mr), _build.ptr(part), B, H * W, C, G, S, RS, eps,
+                         int(x.dtype == torch.bfloat16), int(silu), _build.stream(x.device))
     _build.check(err, "gn_forward")
     group_norm_act.launches += 1
     return y.view(B, H, W, C).permute(0, 3, 1, 2), mr
 
 
-def group_norm_act_backward(x, dy, weight, bias, mr, silu: bool, need_weight_grads: bool = True,
-                            l2=None):
+def group_norm_act_backward(x, dy, weight, bias, mr, silu: bool, need_weight_grads: bool = True):
     """K1 backward: (dx, d weight, d bias) of y = act(GN(x)) given dy and
     the forward's mean and rstd ``mr``; the weight gradients are None when
     not asked for."""
@@ -239,18 +191,14 @@ def group_norm_act_backward(x, dy, weight, bias, mr, silu: bool, need_weight_gra
     _check(dy)
     B, C, H, W = x.shape
     G = mr.shape[1]
-    S, RS, Cc, grid = _schedule(x, G, 2, l2)
+    S, RS = slab_schedule(B, H * W, _sm_count(x.device))
     if not dy.is_contiguous(memory_format=torch.channels_last) or dy.dtype != x.dtype:
         group_norm_act_backward.dy_copies += 1
     xv, dyv = _as_bhwc(x), _as_bhwc(dy.to(x.dtype))
     w, b = weight.float().contiguous(), bias.float().contiguous()
     f32 = dict(device=x.device, dtype=torch.float32)
-    if Cc:
-        pg = torch.empty(2 * grid * (Cc // (C // G)) * 2, **f32)
-        pc = torch.empty(B * C * grid * 2, **f32) if need_weight_grads else None
-    else:
-        pg = torch.empty(B * S * G * 2, **f32)
-        pc = torch.empty(B * S * 2 * C, **f32) if need_weight_grads else None
+    pg = torch.empty(B * S * G * 2, **f32)
+    pc = torch.empty(B * S * 2 * C, **f32) if need_weight_grads else None
     dw = torch.empty(C, **f32) if need_weight_grads else None
     db = torch.empty(C, **f32) if need_weight_grads else None
     dx = torch.empty_like(xv)
@@ -258,8 +206,8 @@ def group_norm_act_backward(x, dy, weight, bias, mr, silu: bool, need_weight_gra
     lib = _build.load("groupnorm", _SIGNATURES)
     err = lib.gn_backward(_build.ptr(xv), _build.ptr(dyv), _build.ptr(dx), _build.ptr(w),
                           _build.ptr(b), _build.ptr(mr), _build.ptr(pg), opt(pc), opt(dw), opt(db),
-                          _build.ptr(_device_info(x.device)[2]), B, H * W, C, G, S, RS, Cc, grid,
-                          int(x.dtype == torch.bfloat16), int(silu), _build.stream(x.device))
+                          B, H * W, C, G, S, RS, int(x.dtype == torch.bfloat16), int(silu),
+                          _build.stream(x.device))
     _build.check(err, "gn_backward")
     group_norm_act_backward.launches += 1
     return dx.view(B, H, W, C).permute(0, 3, 1, 2), dw, db

@@ -37,7 +37,9 @@ def _main(args, device=None):
     args["exp"]["model_dir"] = args["model_dir"]
 
     diff_params = instantiate(args["diff_params"])
-    network = NetworkBundle(instantiate(args["network"], device=device))
+    # inference only: the samplers take their vjps with respect to x alone
+    # (buddy_tpu/sampling/dps.py:194), so the weights need no gradients
+    network = NetworkBundle(instantiate(args["network"], device=device).requires_grad_(False))
     test_set = instantiate(args["dset"]["test"])
     tester = Tester(args=args, network=network, diff_params=diff_params, test_set=test_set,
                     device=device)

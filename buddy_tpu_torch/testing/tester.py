@@ -55,11 +55,6 @@ class Tester:
                  seed: int = 42):
         self.args = args
         self.network = network                      # NetworkBundle
-        module = getattr(network, "module", None)
-        if isinstance(module, torch.nn.Module):
-            # the samplers take their vjps with respect to x alone
-            # (buddy_tpu/sampling/dps.py:194): no parameter gradients
-            module.requires_grad_(False)
         self.diff_params = diff_params
         self.device = resolve_device(device)
         self.test_set = test_set

@@ -10,7 +10,7 @@ Phases, each printing one line:
    with nvcc, one process per source, all at once (the Triton kernels K4
    and K5 compile at their first launch, in phase 3);
 3. each kernel at the main path's shapes and dtypes (K1 at the U-Net's four
-   GroupNorm shapes in both of its schedules; K2 at its four geometries:
+   GroupNorm shapes, through its autograd wrapper and its C calls; K2 at its four geometries:
    operator, model, WPE and the operator's short `cons` spectra, with its
    synthesis compared bit for bit between two calls; K3's entry points with
    and without the hoisted frame spectrum, against the direct sums and the
@@ -229,9 +229,10 @@ def kernel_checks(dev):
     entries = {}
 
     # --- K1 GroupNorm + SiLU, the U-Net's four GN shapes, bf16 ----------------
-    # each shape in both schedules (two launches; one cooperative launch in
-    # chunks that stay in the L2), forward and backward with d weight and d
-    # bias, against the plain version; device us per call from the profiler
+    # forward and backward with d weight and d bias, through the autograd
+    # wrapper (group_norm_act(...).backward, which picks the weight gradients
+    # and casts them to the parameters' dtype) and through the two C calls,
+    # against the plain version; device us per call from the profiler
     gn_table = []
     for i, (B, C, H, W) in enumerate(GN_SHAPES):
         x = (rand(B, C, H, W) * 2 + 0.3).to(torch.bfloat16).contiguous(
@@ -252,38 +253,49 @@ def kernel_checks(dev):
         tol_b = 2.0 ** -6 * float(xp.grad.abs().max())
         tol_w = 1e-3 * float(wp.grad.abs().max())
         tol_db = 1e-3 * float(bp.grad.abs().max())
-        row = {"shape": [B, C, H, W]}
-        for mode, l2 in (("two launches", False), ("L2 chunks", True)):
-            Cc = K1._schedule(x, G, 1, l2)[2], K1._schedule(x, G, 2, l2)[2]
-            if l2 and not all(Cc):
-                continue
-            y_k, mr = K1._launch_forward(x, w, b, G, 1e-6, True, l2=l2)
-            err_f = max_err(y_k.float(), y_p.float())
-            check(f"groupnorm fwd {mode} {x.shape}", err_f, tol)
-            dx, dw, db = K1.group_norm_act_backward(x, dy, w, b, mr, True, True, l2=l2)
-            err_b = max_err(dx.float(), xp.grad.float())
-            check(f"groupnorm bwd dx {mode} {x.shape}", err_b, tol_b)
-            check(f"groupnorm bwd dweight {mode} {x.shape}", max_err(dw, wp.grad), tol_w)
-            check(f"groupnorm bwd dbias {mode} {x.shape}", max_err(db, bp.grad), tol_db)
-            again = K1.group_norm_act_backward(x, dy, w, b, mr, True, True, l2=l2)
-            if not (torch.equal(y_k, K1._launch_forward(x, w, b, G, 1e-6, True, l2=l2)[0])
-                    and all(torch.equal(u, v) for u, v in zip((dx, dw, db), again))):
-                raise AssertionError(f"groupnorm {mode} {x.shape}: two calls differ")
-            with torch.no_grad():
-                reps = 20
-                per_f = profile_device_us(
-                    lambda: K1._launch_forward(x, w, b, G, 1e-6, True, l2=l2), reps)
-                per_b = profile_device_us(
-                    lambda: K1.group_norm_act_backward(x, dy, w, b, mr, True, False, l2=l2), reps)
-            us_f = sum(t for t, _ in per_f.values()) / reps
-            us_b = sum(t for t, _ in per_b.values()) / reps
-            row[mode] = dict(err=(err_f, err_b), us=(us_f, us_b), chunk_channels=Cc if l2 else None,
-                             kernels={k: round(t / reps, 1) for k, (t, _) in
-                                      {**per_f, **per_b}.items()})
+        where = f"{list(x.shape)}"
+        # the public path, with and without the weight gradients asked for
+        xa = x.detach().requires_grad_(True)
+        wa, ba = w.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        ya = K1.group_norm_act(xa, wa, ba, G, 1e-6, silu=True)
+        ya.backward(dy)
+        check(f"groupnorm autograd y {where}", max_err(ya.detach().float(), y_p.float()), tol)
+        check(f"groupnorm autograd dx {where}", max_err(xa.grad.float(), xp.grad.float()), tol_b)
+        check(f"groupnorm autograd dweight {where}", max_err(wa.grad, wp.grad), tol_w)
+        check(f"groupnorm autograd dbias {where}", max_err(ba.grad, bp.grad), tol_db)
+        if (wa.grad.dtype, ba.grad.dtype) != (w.dtype, b.dtype):
+            raise AssertionError(f"groupnorm autograd {where}: weight gradients of dtype "
+                                 f"{wa.grad.dtype}, {ba.grad.dtype}")
+        xo = x.detach().requires_grad_(True)
+        K1.group_norm_act(xo, w, b, G, 1e-6, silu=True).backward(dy)
+        if not torch.equal(xo.grad, xa.grad):
+            raise AssertionError(f"groupnorm autograd {where}: dx differs without the weight "
+                                 f"gradients")
+        # the two C calls
+        y_k, mr = K1._launch_forward(x, w, b, G, 1e-6, True)
+        err_f = max_err(y_k.float(), y_p.float())
+        check(f"groupnorm fwd {where}", err_f, tol)
+        dx, dw, db = K1.group_norm_act_backward(x, dy, w, b, mr, True, True)
+        err_b = max_err(dx.float(), xp.grad.float())
+        check(f"groupnorm bwd dx {where}", err_b, tol_b)
+        check(f"groupnorm bwd dweight {where}", max_err(dw, wp.grad), tol_w)
+        check(f"groupnorm bwd dbias {where}", max_err(db, bp.grad), tol_db)
+        again = K1.group_norm_act_backward(x, dy, w, b, mr, True, True)
+        if not (torch.equal(y_k, K1._launch_forward(x, w, b, G, 1e-6, True)[0])
+                and all(torch.equal(u, v) for u, v in zip((dx, dw, db), again))):
+            raise AssertionError(f"groupnorm {where}: two calls differ")
+        with torch.no_grad():
+            reps = 20
+            per_f = profile_device_us(lambda: K1._launch_forward(x, w, b, G, 1e-6, True), reps)
+            per_b = profile_device_us(
+                lambda: K1.group_norm_act_backward(x, dy, w, b, mr, True, False), reps)
+        us_f = sum(t for t, _ in per_f.values()) / reps
+        us_b = sum(t for t, _ in per_b.values()) / reps
         n = x.numel()
-        row["bound_ms"] = (bound_ms(4 * n, 10 * n)[0], bound_ms(6 * n, 20 * n)[0])
-        row["auto"] = "L2 chunks" if K1._schedule(x, G, 1, None)[2] else "two launches"
-        gn_table.append(row)
+        gn_table.append(dict(shape=[B, C, H, W], us=(round(us_f, 1), round(us_b, 1)),
+                             kernels={k: round(t / reps, 1) for k, (t, _) in
+                                      {**per_f, **per_b}.items()},
+                             bound_ms=(bound_ms(4 * n, 10 * n)[0], bound_ms(6 * n, 20 * n)[0])))
         if i == 0:
             _, mr = K1._launch_forward(x, w, b, G, 1e-6, True)
             xl = x.detach().requires_grad_(True)
@@ -296,24 +308,17 @@ def kernel_checks(dev):
                 t_bwd = (cuda_ms(lambda: K1.group_norm_act_backward(x, dy, w, b, mr, True, False)),
                          cuda_ms(lambda: torch.autograd.grad(yp_graph, xp, dy, retain_graph=True)),
                          cuda_ms(lambda: torch.autograd.grad(yl, xl, dy, retain_graph=True)))
-            auto = row[row["auto"]]
             shape = list(x.shape)
-            entries["groupnorm_silu_fwd"] = dict(
-                err=auto["err"][0], tol=tol, times=t_fwd, shape=shape,
-                bound=bound_ms(4 * n, 10 * n),
-                extra={"device_us": auto["us"][0], "schedule": row["auto"]})
-            entries["groupnorm_silu_bwd"] = dict(
-                err=auto["err"][1], tol=tol_b, times=t_bwd, shape=shape,
-                bound=bound_ms(6 * n, 20 * n),
-                extra={"device_us": auto["us"][1], "schedule": row["auto"]})
-    log(f"kernel K1 groupnorm+silu: fwd/bwd (dx, dweight, dbias) match the plain version, and "
-        f"are bit-identical between two calls, in both schedules at {GN_SHAPES}; device us per "
-        f"call (cold) [fwd, bwd] by schedule, bound ms [fwd, bwd], and the schedule the wrapper "
-        f"takes: " + json.dumps([{k: (v if not isinstance(v, dict) else
-                                      {"us": [round(u, 1) for u in v["us"]],
-                                       "chunk_channels": v["chunk_channels"],
-                                       "kernels": v["kernels"]})
-                                  for k, v in r.items()} for r in gn_table]))
+            entries["groupnorm_silu_fwd"] = dict(err=err_f, tol=tol, times=t_fwd, shape=shape,
+                                                 bound=bound_ms(4 * n, 10 * n),
+                                                 extra={"device_us": us_f})
+            entries["groupnorm_silu_bwd"] = dict(err=err_b, tol=tol_b, times=t_bwd, shape=shape,
+                                                 bound=bound_ms(6 * n, 20 * n),
+                                                 extra={"device_us": us_b})
+    log(f"kernel K1 groupnorm+silu: fwd/bwd (y, dx, dweight, dbias) through the autograd "
+        f"wrapper and the C calls match the plain version, and are bit-identical between two "
+        f"calls, at {GN_SHAPES}; device us per call (cold) [fwd, bwd] and bound ms [fwd, bwd]: "
+        + json.dumps(gn_table))
 
     # --- K2 STFT / ISTFT at the main path's geometries -------------------------
     # operator: 1024/128, hann(512) right-padded, constant, on apply_stft's
@@ -431,7 +436,10 @@ def kernel_checks(dev):
     # each entry point with and without the hoisted frame spectrum, against
     # the direct sums and the FFT-route plain versions; the bound counts X
     # (or its spectrum) and H read once and the output written once against
-    # 5 n log2 n operations a complex transform of a row
+    # 5 n log2 n operations a complex transform of a row, and an entry's
+    # bound in the kernels line is the lesser of its two routes' (the least
+    # work for the function: from X, which has T frames a row to the
+    # spectrum's n, the bytes are fewer)
     Bn, Fb, Tf, Nf, pre = K3_SHAPE
     X, Hf, Gy = crand(Bn, Fb, Tf), crand(Bn, Fb, Nf), crand(Bn, Fb, Tf)
     n = conv_fft_size(Tf, Nf)
@@ -482,6 +490,7 @@ def kernel_checks(dev):
             lib_us = device_us_per_call(library)
             lib_us_warm = device_us_per_call(library, cold=False)
             plain_ms = cuda_ms(plain)
+            bounds = {}
             for variant, kern in kerns.items():
                 ok = kern()
                 err = max_err(torch.view_as_real(ok), torch.view_as_real(op))
@@ -496,7 +505,7 @@ def kernel_checks(dev):
                 us = device_us_per_launch(kern, k3_name)[k3_name[0]]
                 us_warm = device_us_per_launch(kern, k3_name, cold=False)[k3_name[0]]
                 nbytes, transforms = work[variant]
-                bound = bound_ms(nbytes, transforms * fft_ops)
+                bound = bounds[variant] = bound_ms(nbytes, transforms * fft_ops)
                 ms, ms_warm = cuda_ms(kern), cuda_ms(kern, cold=False)
                 k3_log[f"{name} {variant}".strip()] = {
                     "err": err, "tol": tol, "ms": ms, "ms_warm": ms_warm, "device_us": us,
@@ -510,9 +519,12 @@ def kernel_checks(dev):
                                             "device_us_warm": us_warm, "ms_warm": ms_warm,
                                             "library_device_us": lib_us,
                                             "library_device_us_warm": lib_us_warm})
-                elif variant:
+                else:
                     entries[name]["extra"][variant] = {"ms": ms, "device_us": us,
                                                        "bound_ms": bound[0]}
+            entries[name]["bound"] = min(bounds.values())
+            if len(bounds) > 1:
+                entries[name]["extra"]["bound_ms_hoisted"] = bounds["hoisted"][0]
     log(f"kernel K3 subband conv (FFTs of n = {n} in shared memory): fwd/adjoint/filter-grad, "
         f"with and without the hoisted frame spectrum, and the frame spectrum match the direct "
         f"sums and the FFT-route plain versions (1e-4 of the peak) and are bit-identical between "
@@ -818,7 +830,7 @@ def build_tester(dev, tester: str, data_root: str, run_name: str, overrides, see
         f"tester.overriden_name={run_name}", "tester.evaluate.use=True", *overrides])
     os.makedirs(args["model_dir"], exist_ok=True)
     shutil.rmtree(os.path.join(args["model_dir"], run_name), ignore_errors=True)
-    net = NetworkBundle(instantiate(args["network"], device=dev, seed=seed))
+    net = NetworkBundle(instantiate(args["network"], device=dev, seed=seed).requires_grad_(False))
     tester_obj = Tester(args, net, instantiate(args["diff_params"]),
                         instantiate(args["dset"]["test"]), device=dev)
     return args, net, tester_obj
@@ -849,8 +861,7 @@ def check_outputs(tester, mode: str, n_items: int, length: int, blind: bool) -> 
 
 
 _PORT_KERNELS = (
-    "gn_stats_kernel", "gn_apply_kernel", "gn_bwd_stats_kernel", "gn_bwd_apply_kernel",
-    "gn_coop_kernel", "gn_bwd_coop_kernel",                                               # K1
+    "gn_stats_kernel", "gn_apply_kernel", "gn_bwd_stats_kernel", "gn_bwd_apply_kernel",  # K1
     "stft_analysis_kernel", "stft_synthesis_kernel",                                      # K2
     "subband_fft_conv_kernel",                                                            # K3
     "compress_kernel", "compress_bwd_kernel", "comp_loss_fwd_kernel", "comp_loss_bwd_kernel",  # K4

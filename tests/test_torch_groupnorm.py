@@ -2,13 +2,13 @@
 (``buddy_tpu_torch/csrc/groupnorm.cu``) taken to the group statistics, the
 affine coefficients, dx's coefficients and the weight gradients through the
 plain functions of ``ops/groupnorm.py``, against the JAX ``GroupNormAct``
-forward and vjp; and the host-side schedules (row slabs, L2 chunks).
+forward and vjp; and the host-side slab schedule.
 
-The kernels sum per (slab of rows, chunk of channels) and combine the
-partials in their second pass; the tests run that decomposition at uneven
-splits (a last slab shorter than the others, C not a multiple of the 16-byte
-vector, one and two chunks an utterance).  Tolerance 1e-5 relative: float32
-moments over a few hundred elements a group, summed in another order.
+The kernels sum per slab of rows and combine the partials in their second
+pass; the tests run that decomposition at uneven splits (a last slab
+shorter than the others, C not a multiple of the 16-byte vector).
+Tolerance 1e-5 relative: float32 moments over a few hundred elements a
+group, summed in another order.
 """
 
 import numpy as np
@@ -21,27 +21,14 @@ import jax.numpy as jnp
 from test_torch_common import rel_err
 
 GN_SHAPES = [(8, 128, 256, 528), (8, 256, 128, 264), (8, 256, 64, 132), (8, 256, 32, 66)]
-H100_SMS, H100_L2 = 132, 50 * 1024 * 1024
-
-
-def _forward_partials(xv, C, Cc, S, RS, G):
-    """Per-(chunk, slab) per-group partials of (sum x, sum x^2) as the
-    kernels form them, assembled into (B, S, G, 2)."""
-    from buddy_tpu_torch.ops import groupnorm as K1
-    part = torch.zeros(xv.shape[0], S, G, 2)
-    gs = C // G
-    for b, c0 in K1.chunk_schedule(xv.shape[0], C, Cc):
-        ch = K1.slab_sums_plain(xv[b:b + 1, :, c0:c0 + Cc], S, RS)[0]
-        part[b, :, c0 // gs:(c0 + Cc) // gs] = K1.group_partials_plain(ch, Cc // gs)
-    return part
-
+H100_SMS = 132
 
 CASES = {
-    # (B, H, W, C, G, rows a slab, channels a chunk)
-    "uneven slabs, one chunk": (2, 6, 8, 16, 4, 10, 16),
-    "uneven slabs, two chunks": (2, 5, 7, 32, 8, 9, 16),
-    "C=20 not a multiple of 8, two chunks": (3, 4, 5, 20, 10, 6, 10),
-    "one slab, C=12": (1, 3, 4, 12, 3, 12, 12),
+    # (B, H, W, C, G, rows a slab)
+    "uneven slabs, C=16": (2, 6, 8, 16, 4, 10),
+    "uneven slabs, C=32": (2, 5, 7, 32, 8, 9),
+    "C=20 not a multiple of 8": (3, 4, 5, 20, 10, 6),
+    "one slab, C=12": (1, 3, 4, 12, 3, 12),
 }
 
 
@@ -52,11 +39,10 @@ def test_partials_algebra_against_jax(name, silu):
     JAX GroupNormAct forward and vjp."""
     from buddy_tpu.models.layers import GroupNormAct as JGN
     from buddy_tpu_torch.ops import groupnorm as K1
-    B, H, W, C, G, RS, Cc = CASES[name]
+    B, H, W, C, G, RS = CASES[name]
     HW = H * W
     S = -(-HW // RS)
     assert HW % RS != 0 or S == 1          # the last slab is shorter, or there is one
-    assert C % Cc == 0 and Cc % (C // G) == 0
     rng = np.random.default_rng(B * C + RS + silu)
     x = (rng.standard_normal((B, H, W, C)) * 2 + 0.5).astype(np.float32)
     scale = (1 + 0.1 * rng.standard_normal(C)).astype(np.float32)
@@ -70,22 +56,15 @@ def test_partials_algebra_against_jax(name, silu):
     xv, dyv = torch.from_numpy(x).view(B, HW, C), torch.from_numpy(dy).view(B, HW, C)
     w, b = torch.from_numpy(scale), torch.from_numpy(bias)
     count = HW * (C // G)
-    part = _forward_partials(xv, C, Cc, S, RS, G)
+    part = K1.group_partials_plain(K1.slab_sums_plain(xv, S, RS), G)
     mean, rstd, a, sh = K1.forward_coefficients_plain(part, w, b, count, 1e-6)
     u = xv * a[:, None] + sh[:, None]
     y = torch.nn.functional.silu(u) if silu else u
     assert rel_err(y.view(B, H, W, C).numpy(), np.asarray(y_ref)) < 1e-5
 
-    # per utterance and chunk, with that utterance's coefficients
-    pc = torch.zeros(B, S, 2, C)
-    pg = torch.zeros(B, S, G, 2)
+    pc = K1.backward_slab_sums_plain(xv, dyv, a, sh, silu, S, RS)
+    pg = K1.group_partials_plain(pc, G, w)
     gsz = C // G
-    for bb, c0 in K1.chunk_schedule(B, C, Cc):
-        sl = slice(c0, c0 + Cc)
-        ch = K1.backward_slab_sums_plain(xv[bb:bb + 1, :, sl], dyv[bb:bb + 1, :, sl],
-                                         a[bb:bb + 1, sl], sh[bb:bb + 1, sl], silu, S, RS)[0]
-        pc[bb, :, :, sl] = ch
-        pg[bb, :, c0 // gsz:(c0 + Cc) // gsz] = K1.group_partials_plain(ch, Cc // gsz, w[sl])
     c2, c3 = K1.backward_coefficients_plain(pg, mean, rstd, count)
     rep = lambda t: t.repeat_interleave(gsz, 1)[:, None]
     du = K1._du(xv, dyv, a[:, None], sh[:, None], silu)
@@ -97,34 +76,17 @@ def test_partials_algebra_against_jax(name, silu):
 
 
 @pytest.mark.parametrize("shape", GN_SHAPES)
-def test_slab_and_chunk_schedules_cover_every_row_and_channel_once(shape):
-    """At the U-Net's four GroupNorm shapes on an H100 (132 SMs, 50 MB L2):
-    the slabs cover every row once with none empty, and the L2 chunks of
-    the forward (x) and the backward (x and dy) cover every (utterance,
-    channel) once, in whole groups, each within half the L2."""
+def test_slab_schedule_covers_every_row_once(shape):
+    """At the U-Net's four GroupNorm shapes on an H100 (132 SMs): the slabs
+    cover every row of an utterance once, none is empty, each but the last
+    has RS rows, and there are about SLABS_PER_SM statistics CTAs an SM."""
     from buddy_tpu_torch.ops import groupnorm as K1
     B, C, H, W = shape
-    HW, G = H * W, min(C // 4, 32)
+    HW = H * W
     S, RS = K1.slab_schedule(B, HW, H100_SMS)
     assert (S - 1) * RS < HW <= S * RS and RS >= min(HW, K1.MIN_SLAB_ROWS)
-    for streams in (1, 2):
-        Cc = K1.l2_chunks(C, G, HW, 2, streams, H100_L2)
-        assert Cc > 0 and C % Cc == 0 and Cc % (C // G) == 0 and Cc % 8 == 0
-        assert streams * HW * Cc * 2 <= H100_L2 // 2
-        seen = np.zeros((B, C), int)
-        for b, c0 in K1.chunk_schedule(B, C, Cc):
-            seen[b, c0:c0 + Cc] += 1
-        assert (seen == 1).all()
-    # the top level is chunked by half (forward) and a quarter (backward) of its channels
-    if shape == GN_SHAPES[0]:
-        assert (K1.l2_chunks(C, G, HW, 2, 1, H100_L2), K1.l2_chunks(C, G, HW, 2, 2, H100_L2)) == \
-            (64, 32)
-
-
-def test_chunks_of_whole_groups_when_c_is_not_a_vector_multiple():
-    """l2_chunks with C not a multiple of the vector width still returns
-    whole groups dividing C, and 0 where not even one group fits."""
-    from buddy_tpu_torch.ops import groupnorm as K1
-    assert K1.l2_chunks(20, 5, 1000, 2, 1, 2 * 1000 * 8 * 2) == 4       # 8 and 12 do not divide 20
-    assert K1.l2_chunks(20, 5, 1000, 2, 1, 2 * 1000 * 20 * 2) == 20
-    assert K1.l2_chunks(20, 5, 1000, 2, 1, 1000) == 0
+    seen = np.zeros(HW, int)
+    for s in range(S):
+        seen[s * RS:min(HW, (s + 1) * RS)] += 1
+    assert (seen == 1).all()
+    assert B * S <= K1.SLABS_PER_SM * H100_SMS + B

@@ -96,6 +96,50 @@ def test_conv_fft_size_is_the_cheapest_plannable_length():
     assert fft_cost(640) < fft_cost(625) < fft_cost(620)
 
 
+def _smem_wavefronts(n, shift, threads=256):
+    """Shared-memory wavefronts of one pass of the kernels' stages over the
+    frames of a CTA of ``threads``, with frames padded by ``shift``: every
+    warp's 8-byte loads and stores, a wavefront per half-warp for each
+    address sharing a bank with another (a model of the bank conflicts)."""
+    from buddy_tpu_torch.ops.fft_plan import fft_radices
+    padded = lambda i: i + (i >> shift)
+    FS = padded(n - 1) + 1
+    total, Ns = 0, 1
+
+    def cost(addresses):
+        waves = 0
+        for h in range(0, len(addresses), 16):
+            banks = {}
+            for a in set(addresses[h:h + 16]):
+                for b in (2 * a % 32, (2 * a + 1) % 32):
+                    banks.setdefault(b, set()).add(a)
+            waves += max(len(v) for v in banks.values())
+        return waves
+
+    for R in fft_radices(n):
+        nb = n // R
+        lanes = [(t // nb, t % nb) for t in range(threads // nb * nb)] if nb < threads else \
+            [(0, t) for t in range(threads)]
+        for w in range(0, len(lanes), 32):
+            warp = lanes[w:w + 32]
+            for r in range(R):
+                total += cost([fr * FS + padded(j + r * nb) for fr, j in warp])
+                total += cost([fr * FS + padded((j - j % Ns) * R + j % Ns + r * Ns)
+                               for fr, j in warp])
+        Ns *= R
+    return total
+
+
+@pytest.mark.parametrize("m", [512, 256, 255, 640])
+def test_pad_shift_rule_agrees_with_the_bank_conflict_model(m):
+    """At the frame lengths the kernels run (K2's halves of 1024, 512 and
+    510; K3's 640), pad_shift's rule is the shift of fewest modelled
+    wavefronts among none and one float2 in 4, 8, 16 or 32."""
+    from buddy_tpu_torch.ops.fft_plan import pad_shift
+    waves = {shift: _smem_wavefronts(m, shift) for shift in (4, 30, 5, 3, 2)}
+    assert waves[pad_shift(m)] == min(waves.values())
+
+
 CASES = [  # (T, Nf, pre, batch of X, batch of H)
     (37, 100, 1, 2, 2), (78, 100, 1, 1, 3), (20, 5, 2, 2, 1), (109, 100, 0, 2, 2)]
 
