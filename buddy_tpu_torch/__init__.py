@@ -11,10 +11,12 @@ shaped by hand for the TPU are kernels written by hand for the H100:
 * K3 subband frame convolution, its two adjoints and the frame spectrum, by
   FFTs in shared memory, CUDA C++ (``ops/subband_conv.py``,
   ``csrc/subband_conv.cu``; plans in ``ops/fft_plan.py``);
-* K4 power-law compressed STFT loss, forward and backward, Triton
-  (``ops/spec_loss.py``, ``csrc/spec_loss.py``);
-* K5 the passes between the FFTs of the minimum-phase projection, forward
-  and backward, Triton (``ops/minphase.py``, ``csrc/minphase.py``);
+* K4 power-law compressed STFT loss, forward and backward: the loss pair in
+  CUDA C++ (``ops/spec_loss.py``, ``csrc/spec_loss.cu``), the compression
+  and its vjp in Triton (``csrc/spec_loss.py``);
+* K5 the minimum-phase projection, its four FFTs included, one launch a
+  direction (a thread-block cluster a row), CUDA C++ (``ops/minphase.py``,
+  ``csrc/minphase.cu``; plan in ``ops/fft_plan.py``);
 * K6 the blind operator's filter design with its phasor, forward and
   backward, CUDA C++ (``ops/filter_design.py``, ``csrc/filter_design.cu``);
 * K7 the WPE normal equations, CUDA C++ (``ops/wpe_solve.py``,

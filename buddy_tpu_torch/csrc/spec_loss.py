@@ -1,24 +1,17 @@
-"""K4 — power-law compressed STFT loss as Triton kernels.
+"""K4's compression — the power-law compressed STFT as Triton kernels.
 
-Replaces the XLA-fused chains of ``buddy_tpu/losses.py`` (``_compress`` :51
-and the ``l2_comp_stft_*`` reductions of ``loss_fn`` :120): the compression
+Replaces the XLA-fused chain of ``buddy_tpu/losses.py::_compress`` (:51):
 
-    C(X) = (|X| + 1e-8)^c * X / |X|,    C(0) = (1e-8)^c + 0j  (gradient 0)
+    C(X) = (|X| + 1e-8)^c * X / |X|,    C(0) = (1e-8)^c + 0j  (gradient 0),
 
-and the per-utterance squared error  sum_{f,t} |A - C(X)|^2  against an
-already compressed reference A.
+forward and vjp.  (The loss over it, ``loss_fn`` :120, is the CUDA pair of
+``csrc/spec_loss.cu``.)
 
-Layout: complex64 (B, N) rows viewed as interleaved float32 (B, N, 2), one
-row per utterance, N = bins * frames.
+Layout: complex64 viewed as interleaved float32 (..., 2), one flat pass.
 
 What bounds it on the H100: memory.  A few tens of FLOPs per complex
-element against 16 bytes read (forward) or 24-32 bytes moved (backward), so
-the least time is the bytes over 3.35 TB/s.  The eager chain it replaces
-makes about ten passes over the spectrum forward and as many backward; here
-the forward is one pass that compresses, subtracts, squares and reduces a
-block into one partial per program (a two-level reduction without atomics,
-so the sum has a fixed order), and the backward is one pass that forms
-dL/dA and dL/dX from A, X and the (B,) incoming gradient.
+element against 16 bytes moved (forward) or 24 (backward), so the least
+time is the bytes over 3.35 TB/s; each direction is one elementwise pass.
 """
 
 import triton
@@ -83,46 +76,3 @@ def compress_bwd_kernel(x_ptr, g_ptr, out_ptr, total, c, BLOCK: tl.constexpr):
     dr, di = _compress_vjp(re, im, gr, gi, c)
     tl.store(out_ptr + 2 * offs, dr, mask=mask)
     tl.store(out_ptr + 2 * offs + 1, di, mask=mask)
-
-
-@triton.jit
-def comp_loss_fwd_kernel(a_ptr, x_ptr, part_ptr, N, c, zero_val, scale, BLOCK: tl.constexpr):
-    """part[b, blk] = scale * sum over the block of |A - C(X)|^2."""
-    b = tl.program_id(0).to(tl.int64)
-    blk = tl.program_id(1)
-    offs = blk * BLOCK + tl.arange(0, BLOCK)
-    mask = offs < N
-    pos = 2 * (b * N + offs)
-    ar = tl.load(a_ptr + pos, mask=mask, other=0.0)
-    ai = tl.load(a_ptr + pos + 1, mask=mask, other=0.0)
-    xr = tl.load(x_ptr + pos, mask=mask, other=0.0)
-    xi = tl.load(x_ptr + pos + 1, mask=mask, other=0.0)
-    cr, ci = _compress(xr, xi, c, zero_val)
-    dr, di = ar - cr, ai - ci
-    err = tl.where(mask, dr * dr + di * di, 0.0)
-    tl.store(part_ptr + b * tl.num_programs(1) + blk, scale * tl.sum(err, axis=0))
-
-
-@triton.jit
-def comp_loss_bwd_kernel(a_ptr, x_ptr, coef_ptr, ga_ptr, gx_ptr, N, c, zero_val,
-                         BLOCK: tl.constexpr, NEED_GA: tl.constexpr, NEED_GX: tl.constexpr):
-    """With coef[b] = 2 * scale * g[b]:  dL/dA = coef (A - C(X)) and dL/dX
-    the pull-back of -coef (A - C(X)) through C."""
-    b = tl.program_id(0).to(tl.int64)
-    offs = tl.program_id(1) * BLOCK + tl.arange(0, BLOCK)
-    mask = offs < N
-    pos = 2 * (b * N + offs)
-    coef = tl.load(coef_ptr + b)
-    ar = tl.load(a_ptr + pos, mask=mask, other=0.0)
-    ai = tl.load(a_ptr + pos + 1, mask=mask, other=0.0)
-    xr = tl.load(x_ptr + pos, mask=mask, other=0.0)
-    xi = tl.load(x_ptr + pos + 1, mask=mask, other=0.0)
-    cr, ci = _compress(xr, xi, c, zero_val)
-    gr, gi = coef * (ar - cr), coef * (ai - ci)
-    if NEED_GA:
-        tl.store(ga_ptr + pos, gr, mask=mask)
-        tl.store(ga_ptr + pos + 1, gi, mask=mask)
-    if NEED_GX:
-        dr, di = _compress_vjp(xr, xi, -gr, -gi, c)
-        tl.store(gx_ptr + pos, dr, mask=mask)
-        tl.store(gx_ptr + pos + 1, di, mask=mask)

@@ -42,8 +42,12 @@ class NCSNpp(nn.Module):
                  progressive_combine="sum", init_scale=0.0, fourier_scale=16.0,
                  image_size=256, embedding_type="fourier", input_channels=2,
                  spatial_channels=1, dropout=0.0, centered=True, discriminative=False,
-                 compute_dtype=None):
+                 compute_dtype=None, quantize_int8=False):
         super().__init__()
+        if quantize_int8:
+            raise NotImplementedError(
+                "quantize_int8: the int8 convolutions (K10, buddy_tpu/ops/qconv.py) are not "
+                "ported yet (ROADMAP.md, queue 2); a float network would give another result")
         if resblock_type != "biggan" or fir:
             raise NotImplementedError("only biggan ResBlocks without FIR resampling are ported")
         if progressive not in ("none", "output_skip") or \
@@ -251,8 +255,11 @@ _NET_KEYS = set(inspect.signature(NCSNpp).parameters)
 def NCSNppTime(stft=None, device=None, seed: int = 0, **kwargs) -> NCSNppTimeModule:
     """Config entry point (conf/network/ncsnpp.yaml ``_target_``): the
     network on ``device`` (the card unless ``device="cpu"``), randomly
-    initialized from ``seed``.  Keys the port does not use (the JAX
-    package's TPU switches) are ignored."""
+    initialized from ``seed``.  ``quantize_int8=True`` raises (K10 is not
+    ported); the other keys the port does not use (the int8 tuning keys,
+    which change nothing while int8 is off, and the JAX package's TPU
+    switches ``fuse_resample`` and ``remat``, which change no value) are
+    ignored."""
     if stft is None:
         raise ValueError("stft must be provided")
     net_kwargs = {k: (tuple(v) if isinstance(v, list) else v)

@@ -55,8 +55,9 @@ def pad_shift(m: int) -> int:
     return 4 if m % 2 == 0 else 30
 
 
-def stage_tables(radices):
-    """(complex64 table, tw_off, root_off) of the Stockham stages."""
+def stage_tables(radices, dtype=np.complex64):
+    """(table, tw_off, root_off) of the Stockham stages, built in float64
+    and cast to ``dtype``."""
     parts, tw_off, root_off, off, Ns = [], [], [], 0, 1
     for R in radices:
         k = np.arange(Ns)[:, None]
@@ -71,7 +72,7 @@ def stage_tables(radices):
         else:
             root_off.append(0)
         Ns *= R
-    return np.concatenate(parts).astype(np.complex64), tw_off, root_off
+    return np.concatenate(parts).astype(dtype), tw_off, root_off
 
 
 def fft_cost(n: int) -> float:
@@ -110,3 +111,103 @@ class ConvFftPlan:
                                + self.tw_off + pad + self.root_off + pad, np.int32)
         self.header_ptr = self.header.ctypes.data
         self.table = torch.as_tensor(table.view(np.float32), device=resolve_device(device))
+
+
+# --- K5: the minimum-phase chain, one thread-block cluster a row ---------------
+MINPHASE_CLUSTER = 16                 # csrc/minphase.cu kCluster: CTAs a row (a non-portable size)
+MINPHASE_MAX_N1 = 128                 # longest column FFT (Stockham, butterflies only)
+MINPHASE_MAX_N2 = 128                 # csrc/minphase.cu kMaxN2: longest direct DFT
+MINPHASE_MAX_SLOTS = 32               # csrc/minphase.cu kMaxSlots: column-FFT outputs a CTA owns
+MINPHASE_HEADER = 10 + 3 * MAX_STAGES + MINPHASE_MAX_N1 + MINPHASE_CLUSTER * MINPHASE_MAX_SLOTS
+
+
+def minphase_factors(L: int):
+    """(N1, N2) with L = N1 N2 for K5's four-step FFT of L = n/2 points: N1
+    the longest length up to MINPHASE_MAX_N1 that the butterflies alone
+    plan (radices 8, 4, 2, 3, 5), N2 <= MINPHASE_MAX_N2 a direct DFT of
+    any length; None where no such pair exists.  128 x 101 at the main
+    path's L = 128 (Nf + 1), Nf = 100."""
+    for n1 in range(min(L, MINPHASE_MAX_N1), 1, -1):
+        if L % n1 == 0 and L // n1 <= MINPHASE_MAX_N2:
+            radices = fft_radices(n1)
+            if radices is not None and set(radices) <= set(BUTTERFLIES):
+                return n1, L // n1
+    return None
+
+
+def cluster_layout(n1: int, ctas: int):
+    """Which CTA of a row's cluster owns each column-FFT output k1 (and so
+    the spectrum bins f = k1 + N1 k2): k1 and N1 - k1 always together, so
+    that the real split, which pairs bin f with L - f, stays inside a CTA.
+    CTA c owns a contiguous block of k = 0 .. N1/2 (by weight: 1 for the
+    lone 0 and N1/2, 2 for a pair) and their partners N1 - k, and holds
+    them in slots in ascending k1, so that an exchange moves runs of
+    consecutive k1 (and the pairs' first members, k1 <= N1/2, come first).
+    Returns (slot, k1_of): the slot of each k1 in its CTA, and each CTA's
+    k1 by slot."""
+    k1_of = [[] for _ in range(ctas)]
+    before = 0.0
+    for k in range(n1 // 2 + 1):
+        group = sorted({k, (n1 - k) % n1})
+        k1_of[min(ctas - 1, int((before + len(group) / 2) * ctas / n1))].extend(group)
+        before += len(group)
+    slot = [0] * n1
+    for ks in k1_of:
+        ks.sort()
+        for s, k in enumerate(ks):
+            slot[k] = s
+    return slot, k1_of
+
+
+class MinPhasePlan:
+    """K5's plan for rows of L samples (n = 2 L): every transform of the
+    chain is a packed complex FFT of L points, split into (or formed from)
+    the n/2 + 1 bins of a real sequence of n points.  The L points run as
+    a four-step FFT, L = N1 N2 (``minphase_factors``): N2 column FFTs of N1
+    points through the Stockham stages of csrc/fft.cuh, the twiddles
+    exp(-2 pi i j2 k1 / L), then N1 direct DFTs of N2 points.
+
+    ``table64`` (complex128, built in float64; the card reads it as
+    complex64 from ``table``): the Stockham stages of N1 at 0, the four-step
+    twiddles at ``tw4_off + j2 N1 + k1``, the N2 roots exp(-2 pi i q / N2)
+    at ``roots_off`` and the split's exp(-2 pi i f / n), f = 0..L, at
+    ``post_off``.  ``header`` (int32, what csrc/minphase.cu reads): [L, N1,
+    N2, stages, pad_shift, CTAs, slots, tw4_off, roots_off, post_off,
+    radices, tw_off, root_off (each MAX_STAGES), slot (MINPHASE_MAX_N1),
+    k1_of (MINPHASE_MAX_SLOTS a CTA, -1 past the end)].
+    Raises ValueError for an L the kernel cannot run."""
+
+    def __init__(self, L: int, device=None):
+        factors = minphase_factors(L)
+        if factors is None:
+            raise ValueError(f"K5 has no plan for rows of L={L} (n/2 = {L}): no factor "
+                             f"N1 <= {MINPHASE_MAX_N1} of radices {BUTTERFLIES} leaves "
+                             f"N2 <= {MINPHASE_MAX_N2}")
+        self.L, (self.N1, self.N2) = L, factors
+        self.radices = fft_radices(self.N1)
+        stages, self.tw_off, self.root_off = stage_tables(self.radices)
+        self.pad_shift = pad_shift(self.N1)
+        self.slot, self.k1_of = cluster_layout(self.N1, MINPHASE_CLUSTER)
+        self.slots = max(len(ks) for ks in self.k1_of)
+        assert self.slots <= MINPHASE_MAX_SLOTS
+        j2, k1 = np.meshgrid(np.arange(self.N2), np.arange(self.N1), indexing="ij")
+        tw4 = np.exp(-2j * np.pi * j2 * k1 / L).ravel()
+        roots = np.exp(-2j * np.pi * np.arange(self.N2) / self.N2)
+        post = np.exp(-2j * np.pi * np.arange(L + 1) / (2 * L))
+        post[[0, L]] = 1.0, -1.0          # exact: DC's and Nyquist's bins come out real
+        stages64, _, _ = stage_tables(self.radices, np.complex128)
+        self.tw4_off = len(stages64)
+        self.roots_off = self.tw4_off + len(tw4)
+        self.post_off = self.roots_off + len(roots)
+        self.table64 = np.concatenate([stages64, tw4, roots, post])
+        pad = [0] * (MAX_STAGES - len(self.radices))
+        k1_of = sum((ks + [-1] * (MINPHASE_MAX_SLOTS - len(ks)) for ks in self.k1_of), [])
+        self.header = np.array(
+            [L, self.N1, self.N2, len(self.radices), self.pad_shift, MINPHASE_CLUSTER,
+             self.slots, self.tw4_off, self.roots_off, self.post_off]
+            + list(self.radices) + pad + self.tw_off + pad + self.root_off + pad
+            + self.slot + [0] * (MINPHASE_MAX_N1 - self.N1) + k1_of, np.int32)
+        assert len(self.header) == MINPHASE_HEADER
+        self.header_ptr = self.header.ctypes.data
+        self.table = torch.as_tensor(self.table64.astype(np.complex64).view(np.float32),
+                                     device=resolve_device(device))

@@ -1,29 +1,33 @@
 """Hilbert transform and minimum-phase RIR projection
-(``buddy_tpu/ops/minphase.py``), and kernel K5 (Triton, ``csrc/minphase.py``).
+(``buddy_tpu/ops/minphase.py``), and kernel K5 (CUDA, ``csrc/minphase.cu``).
 
 The blind operator's consistency projection runs every estimated RIR through
-``minimum_phase_version`` in each inner update, forward and backward.  The
-four FFTs of the chain are ``torch.fft`` (cuFFT on the card), as the JAX
-package computes them outside any kernel; the passes between them are K5:
-one launch between two transforms, forward and backward.
+``minimum_phase_version`` in each inner update, forward and backward.  K5
+runs the whole chain of a row, its four FFTs included, in one launch each
+way: one thread-block cluster a row (``csrc/minphase.cu``), from the plan of
+``ops/fft_plan.py::MinPhasePlan``.  The forward saves the half spectra of
+H and of the minimum phase (n/2 + 1 bins a row each) for the
+backward.
 
 ``minimum_phase_plain`` is the plain PyTorch version and
 ``minimum_phase_backward_plain`` its explicit backward formula (the one the
-backward kernels implement).  Wrappers, each counting every Triton launch
-it makes (four per chain): ``minimum_phase_version`` and
-``minimum_phase_backward``.  CPU tensors take
-the plain versions (autograd differentiates the forward); CUDA tensors launch
-the kernels or raise.
+backward kernel implements).  Wrappers, each counting its launches (one a
+call): ``minimum_phase_version`` and ``minimum_phase_backward``.  CPU
+tensors take the plain versions (autograd differentiates the forward); CUDA
+tensors launch the kernels or raise (a row length that K5 cannot plan
+raises ValueError).
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
-from buddy_tpu_torch.ops import dft
+from buddy_tpu_torch.ops import _build, dft
+from buddy_tpu_torch.ops.fft_plan import MinPhasePlan
 
-_BLOCK = 1024
 _windows: dict = {}
 
 
@@ -82,91 +86,83 @@ def minimum_phase_backward_plain(h: torch.Tensor, g: torch.Tensor) -> torch.Tens
 
 
 # --- kernel launches ----------------------------------------------------------
-def _check(h: torch.Tensor, what: str) -> None:
-    if h.device.type != "cuda" or h.dtype != torch.float32 or h.dim() < 1:
-        raise ValueError(f"{what}: expected a float32 CUDA tensor, got {h.dtype} "
-                         f"{tuple(h.shape)} on {h.device}")
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "minphase_forward": [_P] * 7 + [_I, _P],
+    "minphase_backward": [_P] * 7 + [_I, _P],
+}
+_plans: dict = {}
 
 
-def _grid(total: int):
-    return ((total + _BLOCK - 1) // _BLOCK,)
+def _plan(L: int, device) -> MinPhasePlan:
+    key = (L, str(device))
+    plan = _plans.get(key)
+    if plan is None:
+        plan = _plans[key] = MinPhasePlan(L, device)
+    return plan
 
 
-def _real_crop(K, w: torch.Tensor, L: int, wrapper) -> torch.Tensor:
-    N, n = w.shape
-    out = torch.empty((N, L), device=w.device, dtype=torch.float32)
-    K.real_crop_kernel[_grid(N * L)](torch.view_as_real(w), out, N * L, n, L,
-                                     BLOCK=_BLOCK, num_warps=4)
-    wrapper.launches += 1
-    return out
-
-
-def _apply_window(K, U: torch.Tensor, w: torch.Tensor, wrapper) -> torch.Tensor:
-    V = torch.empty_like(U)
-    K.window_kernel[_grid(U.numel())](torch.view_as_real(U), w, torch.view_as_real(V),
-                                      U.numel(), U.shape[-1], BLOCK=_BLOCK, num_warps=4)
-    wrapper.launches += 1
-    return V
+def _check(t: torch.Tensor, what: str) -> None:
+    if t.device.type != "cuda" or t.dtype != torch.float32 or t.dim() < 1:
+        raise ValueError(f"{what}: expected a float32 CUDA tensor, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
 
 
 def _launch_forward(h: torch.Tensor):
-    from buddy_tpu_torch.csrc import minphase as K
+    """y (..., L) and the saved half spectra: H (N, L + 1) complex64 and the
+    minimum phase (N, L + 1) float32."""
     _check(h, "minimum_phase_version")
     lead, L = h.shape[:-1], h.shape[-1]
-    n = 2 * L
-    h2 = h.reshape(-1, L)
-    total = h2.shape[0] * n
-    w = _window(n, torch.float32, h.device)
-    H = dft.cfft(h2, n).contiguous()
-    log_mag = torch.empty(H.shape, device=h.device, dtype=torch.float32)
-    K.logmag_kernel[_grid(total)](torch.view_as_real(H), log_mag, total,
-                                  BLOCK=_BLOCK, num_warps=4)
+    plan = _plan(L, h.device)
+    h2 = h.reshape(-1, L).contiguous()
+    N = h2.shape[0]
+    y = torch.empty_like(h2)
+    Hs = torch.empty((N, L + 1), device=h.device, dtype=torch.complex64)
+    phis = torch.empty((N, L + 1), device=h.device, dtype=torch.float32)
+    lib = _build.load("minphase", _SIGNATURES)
+    p = _build.ptr
+    scratch = torch.empty((N, 4 * (L + 1)), device=h.device, dtype=torch.float32)
+    err = lib.minphase_forward(p(h2), p(y), p(Hs), p(phis), p(scratch), p(plan.table),
+                               plan.header_ptr, N, _build.stream(h.device))
+    _build.check(err, "minphase_forward")
     minimum_phase_version.launches += 1
-    z = dft.icfft(_apply_window(K, dft.cfft(log_mag, n), w, minimum_phase_version), n)
-    W = torch.empty_like(H)
-    K.phasor_kernel[_grid(total)](torch.view_as_real(H), torch.view_as_real(z),
-                                  torch.view_as_real(W), total, BLOCK=_BLOCK, num_warps=4)
-    minimum_phase_version.launches += 1
-    out = _real_crop(K, dft.icfft(W, n), L, minimum_phase_version)
-    return out.reshape(lead + (L,)), H, z
+    return y.reshape(lead + (L,)), Hs, phis
 
 
-def minimum_phase_backward(H: torch.Tensor, z: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
-    """K5 backward wrapper: dL/dh (N, L) from the saved spectrum H (N, 2L),
-    the saved analytic signal z (N, 2L) and g = dL/dout (N, L)."""
-    from buddy_tpu_torch.csrc import minphase as K
+def minimum_phase_backward(Hs: torch.Tensor, phis: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """K5 backward wrapper: dL/dh (N, L) from the forward's saved half
+    spectra H (N, L + 1) and phase (N, L + 1) and g = dL/dout (N, L)."""
     _check(g, "minimum_phase_backward")
-    N, n = H.shape
-    L = n // 2
-    total = N * n
-    w = _window(n, torch.float32, H.device)
-    gw = dft.cfft(g.reshape(N, L).contiguous(), n)           # the 1/n is applied in the kernel
-    gz = torch.empty_like(H)
-    g_mag = torch.empty(H.shape, device=H.device, dtype=torch.float32)
-    K.phasor_bwd_kernel[_grid(total)](torch.view_as_real(H), torch.view_as_real(z),
-                                      torch.view_as_real(gw), torch.view_as_real(gz), g_mag,
-                                      total, 1.0 / n, BLOCK=_BLOCK, num_warps=4)
+    N, L = Hs.shape[0], Hs.shape[-1] - 1
+    if Hs.dtype != torch.complex64 or phis.dtype != torch.float32 or \
+            tuple(phis.shape) != (N, L + 1) or g.numel() != N * L:
+        raise ValueError(f"minimum_phase_backward: H {tuple(Hs.shape)} {Hs.dtype}, phase "
+                         f"{tuple(phis.shape)}, g {tuple(g.shape)}")
+    plan = _plan(L, g.device)
+    g2 = g.reshape(N, L).contiguous()
+    dh = torch.empty_like(g2)
+    lib = _build.load("minphase", _SIGNATURES)
+    p = _build.ptr
+    scratch = torch.empty((N, 4 * (L + 1)), device=g.device, dtype=torch.float32)
+    err = lib.minphase_backward(p(g2), p(Hs.contiguous()), p(phis.contiguous()), p(dh),
+                                p(scratch), p(plan.table), plan.header_ptr, N,
+                                _build.stream(g.device))
+    _build.check(err, "minphase_backward")
     minimum_phase_backward.launches += 1
-    y = dft.icfft(_apply_window(K, dft.cfft(gz, n), w, minimum_phase_backward), n)
-    gH = torch.empty_like(H)
-    K.mag_bwd_kernel[_grid(total)](torch.view_as_real(H), g_mag, torch.view_as_real(y),
-                                   torch.view_as_real(gH), total, BLOCK=_BLOCK, num_warps=4)
-    minimum_phase_backward.launches += 1
-    return _real_crop(K, torch.fft.ifft(gH, n=n, dim=-1, norm="forward"), L,
-                      minimum_phase_backward)
+    return dh
 
 
 class _MinPhaseFn(torch.autograd.Function):
     @staticmethod
     def forward(ctx, h):
-        out, H, z = _launch_forward(h)
-        ctx.save_for_backward(H, z)
+        out, Hs, phis = _launch_forward(h)
+        ctx.save_for_backward(Hs, phis)
         return out
 
     @staticmethod
     def backward(ctx, g):
-        H, z = ctx.saved_tensors
-        return minimum_phase_backward(H, z, g).reshape(g.shape)
+        Hs, phis = ctx.saved_tensors
+        return minimum_phase_backward(Hs, phis, g).reshape(g.shape)
 
 
 def minimum_phase_version(h: torch.Tensor) -> torch.Tensor:

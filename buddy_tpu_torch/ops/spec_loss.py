@@ -1,4 +1,6 @@
-"""Power-law compressed STFT loss, and kernel K4 (Triton, ``csrc/spec_loss.py``).
+"""Power-law compressed STFT loss, and kernel K4: the compression and its
+vjp in Triton (``csrc/spec_loss.py``), the loss pair in CUDA
+(``csrc/spec_loss.cu``).
 
 ``spec_compress(X, c)`` is the compression of ``buddy_tpu/losses.py::_compress``,
 
@@ -22,10 +24,21 @@ counting its launches: ``spec_compress`` / ``spec_compress_backward`` and
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from buddy_tpu_torch.ops import _build
 
 _BLOCK = 1024
 _EPS = 1e-8
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_SIGNATURES = {
+    "comp_loss_parts": [_I, _L],
+    "comp_loss_forward": [_P] * 5 + [_I, _L, _F, _F, _F, _P],
+    "comp_loss_backward": [_P] * 5 + [_I, _L, _F, _F, _F, _P],
+}
+_tickets: dict = {}
 
 
 # --- plain versions ---------------------------------------------------------
@@ -101,18 +114,37 @@ def spec_compress_backward(X: torch.Tensor, gC: torch.Tensor, factor: float) -> 
     return torch.view_as_complex(out)
 
 
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """t, or a copy of it where its data does not start on 16 bytes (the
+    kernels load two complex values at a time)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _ticket_buffer(B: int, device) -> torch.Tensor:
+    """B zeroed counters on ``device`` for the forward's last-CTA election;
+    each launch leaves them zero, so they are allocated once."""
+    key = str(device)
+    buf = _tickets.get(key)
+    if buf is None or buf.numel() < B:
+        buf = _tickets[key] = torch.zeros(max(B, 64), dtype=torch.int32, device=device)
+    return buf
+
+
 def _launch_loss(A: torch.Tensor, X: torch.Tensor, factor: float, scale: float) -> torch.Tensor:
-    from buddy_tpu_torch.csrc import spec_loss as K
     if A.shape != X.shape or X.dim() < 2:
         raise ValueError(f"comp_loss: A {tuple(A.shape)} and X {tuple(X.shape)} differ")
-    ar, xr = _real(A, "comp_loss reference"), _real(X, "comp_loss estimate")
+    ar = _aligned(_real(A, "comp_loss reference"))
+    xr = _aligned(_real(X, "comp_loss estimate"))
     B, N = X.shape[0], X[0].numel()
-    n_blocks = (N + _BLOCK - 1) // _BLOCK
-    part = torch.empty((B, n_blocks), device=X.device, dtype=torch.float32)
-    K.comp_loss_fwd_kernel[(B, n_blocks)](ar, xr, part, N, float(factor), float(_EPS ** factor),
-                                          float(scale), BLOCK=_BLOCK, num_warps=4)
+    lib = _build.load("spec_loss", _SIGNATURES)
+    part = torch.empty((B, lib.comp_loss_parts(B, N)), device=X.device, dtype=torch.float32)
+    loss = torch.empty(B, device=X.device, dtype=torch.float32)
+    p = _build.ptr
+    err = lib.comp_loss_forward(p(ar), p(xr), p(part), p(_ticket_buffer(B, X.device)), p(loss),
+                                B, N, factor, _EPS ** factor, scale, _build.stream(X.device))
+    _build.check(err, "comp_loss_forward")
     comp_loss.launches += 1
-    return part.sum(1)
+    return loss
 
 
 def comp_loss_backward(A, X, g, factor: float, scale: float, need_a: bool = True,
@@ -122,15 +154,19 @@ def comp_loss_backward(A, X, g, factor: float, scale: float, need_a: bool = True
     if X.device.type == "cpu":
         gA, gX = comp_loss_backward_plain(A, X, g, factor, scale)
         return (gA if need_a else None), (gX if need_x else None)
-    from buddy_tpu_torch.csrc import spec_loss as K
-    ar, xr = _real(A, "comp_loss_backward reference"), _real(X, "comp_loss_backward estimate")
+    ar = _aligned(_real(A, "comp_loss_backward reference"))
+    xr = _aligned(_real(X, "comp_loss_backward estimate"))
     B, N = X.shape[0], X[0].numel()
-    coef = (2.0 * scale * g).to(torch.float32).contiguous()
-    ga = torch.empty_like(ar) if need_a else ar          # unused pointers stay valid
-    gx = torch.empty_like(xr) if need_x else xr
-    K.comp_loss_bwd_kernel[(B, (N + _BLOCK - 1) // _BLOCK)](
-        ar, xr, coef, ga, gx, N, float(factor), float(_EPS ** factor),
-        BLOCK=_BLOCK, NEED_GA=need_a, NEED_GX=need_x, num_warps=4)
+    g = g.to(torch.float32).contiguous()
+    if g.device != X.device or g.numel() != B:
+        raise ValueError(f"comp_loss_backward: g {tuple(g.shape)} on {g.device} for B={B}")
+    ga = torch.empty_like(ar) if need_a else None
+    gx = torch.empty_like(xr) if need_x else None
+    opt = lambda t: None if t is None else _build.ptr(t)
+    lib = _build.load("spec_loss", _SIGNATURES)
+    err = lib.comp_loss_backward(_build.ptr(ar), _build.ptr(xr), _build.ptr(g), opt(ga), opt(gx),
+                                 B, N, factor, _EPS ** factor, scale, _build.stream(X.device))
+    _build.check(err, "comp_loss_backward")
     comp_loss_backward.launches += 1
     return (torch.view_as_complex(ga) if need_a else None,
             torch.view_as_complex(gx) if need_x else None)

@@ -100,6 +100,41 @@ def test_comp_loss_unprepared_reference_carries_gradient():
     assert rel_err(g[0].numpy(), np.conj(np.asarray(ref))) < 1e-5
 
 
+def _loss_stretches(B, N, nb):
+    """``stretch()`` of ``csrc/spec_loss.cu``: for CTA blk of row b (N complex
+    elements a row, rows back to back), its float4 pairs [p0, p1) (pair p
+    holds the elements 2p and 2p + 1 of the flat array) and the lone head
+    or tail element of a row that starts or ends off a 16-byte boundary."""
+    out = []
+    for b in range(B):
+        row0 = b * N
+        a0 = (row0 + 1) & ~1
+        a1 = max(a0, (row0 + N) & ~1)
+        pairs = (a1 - a0) // 2
+        for blk in range(nb):
+            p0, p1 = a0 // 2 + pairs * blk // nb, a0 // 2 + pairs * (blk + 1) // nb
+            head = row0 if blk == 0 and a0 != row0 else -1
+            tail = a1 if blk == nb - 1 and row0 + N > a1 >= a0 else -1
+            out.append((b, p0, p1, head, -1 if tail == head else tail))
+    return out
+
+
+@pytest.mark.parametrize("B,N,nb", [(8, 513 * 517, 66), (8, 513 * 113, 66), (3, 5, 2),
+                                    (2, 1, 1), (4, 7, 3), (2, 2, 4)])
+def test_comp_loss_stretches_cover_each_element_once(B, N, nb):
+    """The CUDA loss pair walks each utterance's row as float4 pairs in
+    contiguous stretches, one a CTA, with the odd element at a row's head
+    or tail (odd N: 513 x 517 at the main path) done alone: every element
+    of row b is taken exactly once, by a CTA of row b."""
+    seen = {b: [] for b in range(B)}
+    for b, p0, p1, head, tail in _loss_stretches(B, N, nb):
+        assert p0 <= p1
+        seen[b] += [e for p in range(p0, p1) for e in (2 * p, 2 * p + 1)]
+        seen[b] += [e for e in (head, tail) if e >= 0]
+    for b in range(B):
+        assert sorted(seen[b]) == list(range(b * N, (b + 1) * N))
+
+
 # --- K5 -----------------------------------------------------------------------
 @pytest.mark.parametrize("L", [64, 101, 33])
 def test_minimum_phase_forward_backward(L):

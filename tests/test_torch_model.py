@@ -95,3 +95,23 @@ def test_forward_positional_no_pyramids():
     with torch.no_grad():
         y = tnet(torch.from_numpy(x), torch.from_numpy(cnoise)).numpy()
     assert rel_err(y, y_ref) < 1e-4
+
+
+def test_quantize_int8_raises_and_int8_keys_are_ignored_when_off():
+    """``network.quantize_int8=true`` raises until the int8 convolutions are
+    ported (a float network would be another result than the JAX
+    package's); with int8 off, the int8 tuning keys and the TPU switches
+    build the same network, weight for weight, as without them."""
+    from test_torch_common import TINY_NET, torch_compose
+    from buddy_tpu_torch.config import instantiate
+    with pytest.raises(NotImplementedError, match="K10"):
+        instantiate(torch_compose(TINY_NET + ["network.quantize_int8=true"])["network"],
+                    device="cpu")
+    keys = ["network.quantize_int8=false", "network.quantize_accum=bfloat16",
+            "network.quantize_bwd=true", "network.quantize_static=true",
+            "network.fuse_resample=true"]
+    plain = instantiate(torch_compose(TINY_NET)["network"], device="cpu", seed=3)
+    with_keys = instantiate(torch_compose(TINY_NET + keys)["network"], device="cpu", seed=3)
+    a, b = plain.state_dict(), with_keys.state_dict()
+    assert a.keys() == b.keys()
+    assert all(torch.equal(a[k], b[k]) for k in a)
