@@ -52,6 +52,24 @@
 // and after the elementwise pass.  Every sum runs in a fixed order: two
 // calls give identical bits.  Everything is float32 and no fast-math
 // intrinsic is used.
+//
+// Every row length from 2 to 66560 runs (ops/fft_plan.py::minphase_route).
+// The direct DFT takes N2 up to kMaxN2 = 1040 (its cost grows with N2: the
+// 128 x 513 of an RIR as long as the tester's utterance costs five times
+// the main path's 128 x 101 a point); that needs the column buffers and the
+// rows to share their shared memory (below).  A length with no such
+// factorisation (a prime, or a large prime times a small factor) takes a
+// Bluestein step instead: Z_f = w_f sum_j (z_j w_j) conj(w_{f-j}), the chirp
+// w_j = exp(-i pi j^2 / L), as a circular convolution of N = N1 N2 >= 2L - 1
+// points (N1 = 128): the four-step FFT of N, the product with the filter's
+// spectrum (built on the host in float64, divided by N) and its conjugate
+// through the row's scratch, the four-step FFT again, and Z (natural
+// order) through the scratch once more.  Its bins then leave the owner
+// layout, so the chain's elementwise passes take runs of f a CTA from the
+// scratch and keep their state in shared memory by the run's index; the
+// route costs two more cluster barriers a transform.  The direct route
+// is chosen where it costs fewer operations (the main path's 128 x 101
+// keeps its plan and its bits).
 
 #include <cooperative_groups.h>
 
@@ -63,14 +81,18 @@ namespace {
 
 constexpr int kCluster = 16;      // ops/fft_plan.py MINPHASE_CLUSTER: CTAs a row
 constexpr int kMaxN1 = 128;       // MINPHASE_MAX_N1
-constexpr int kMaxN2 = 128;       // MINPHASE_MAX_N2
+constexpr int kMaxN2 = 1040;      // MINPHASE_MAX_N2
 constexpr int kMaxSlots = 32;     // MINPHASE_MAX_SLOTS
 constexpr int kThreads = 256;
 constexpr int kLoads = 4;         // loads from the L2 a thread has in flight
 constexpr float kEps = 1e-8f;
+constexpr int kDirect = 0, kChirp = 1;    // MINPHASE_DIRECT, MINPHASE_CHIRP
+constexpr int kHeaderTop = 13;            // header fields before the radices
 
 struct Plan {
   int L, N1, N2, n_stages, pad_shift, slots, tw4_off, roots_off, post_off;
+  int route, chirp_off, filt_off;
+  int xch_len, z_len;                 // float2s of the row's exchange and chirp buffers
   int M;                              // = N1: the column FFT's length, as fft.cuh reads it
   int n1_shift;                       // log2 N1 where N1 is a power of two, else -1
   int radix[kMaxStages], tw_off[kMaxStages], root_off[kMaxStages];
@@ -83,11 +105,21 @@ struct Plan {
 //   col_a, col_b  ping-pong of the column FFTs: ncol frames of FS points
 //   rows   [j2][slot]       the column FFTs' twiddled outputs for this CTA's k1
 //   spec   [k2][slot]       bins k1 + N1 k2 of the last transform
-//   keep   [k2][slot], k2 <= N2: a real half spectrum kept across transforms
 //   roots  the N2 roots exp(-2 pi i q / N2)
+//   keep   a real half spectrum kept across transforms: direct [k2][slot],
+//          k2 <= N2; chirp two bins for each of the CTA's pairs
+// The column buffers and rows/spec are never live together (a cluster
+// barrier lies between the column FFTs and the gather into rows, and between
+// a transform's last read of spec and the next column FFTs): they share
+// their space, which lets N2 reach kMaxN2.
 struct Layout {
   int FS, ncol, col_a, col_b, rows, spec, roots, keep, floats;
 };
+
+// bins 0 .. L/2 of the chirp route's pairs that CTA `rank` takes
+__host__ __device__ __forceinline__ int chirp_pairs(const Plan& p) {
+  return (p.L / 2 + kCluster) / kCluster;
+}
 
 __host__ __device__ Layout layout(const Plan& p) {
   Layout l;
@@ -95,11 +127,12 @@ __host__ __device__ Layout layout(const Plan& p) {
   l.ncol = (p.N2 + kCluster - 1) / kCluster;
   l.col_a = 0;
   l.col_b = l.col_a + 2 * l.ncol * l.FS;
-  l.rows = l.col_b + 2 * l.ncol * l.FS;
+  l.rows = 0;
   l.spec = l.rows + 2 * p.N2 * p.slots;
-  l.roots = l.spec + 2 * p.N2 * p.slots;
+  const int cols = l.col_b + 2 * l.ncol * l.FS, rows_spec = l.spec + 2 * p.N2 * p.slots;
+  l.roots = cols > rows_spec ? cols : rows_spec;
   l.keep = l.roots + 2 * p.N2;
-  l.floats = l.keep + (p.N2 + 1) * p.slots;
+  l.floats = l.keep + (p.route == kChirp ? 2 * chirp_pairs(p) : (p.N2 + 1) * p.slots);
   return l;
 }
 
@@ -285,6 +318,80 @@ __device__ void store_samples(const Plan& p, const Smem& s, int rank, float* out
   }
 }
 
+// fn(k, index in s.spec) for each bin k1 + N1 k2 this CTA owns.
+template <class Fn>
+__device__ void each_owned(const Plan& p, int rank, const Fn& fn) {
+  const int ns = p.count[rank];
+  for (int i = threadIdx.x; i < ns * p.N2; i += blockDim.x) {
+    const int k2 = i / ns, sl = i - k2 * ns;
+    fn(p.k1_of[rank][sl] + p.N1 * k2, k2 * p.slots + sl);
+  }
+}
+
+// The complex FFT of L points of z_j = gather(j).  Direct: the four-step FFT,
+// the bins this CTA owns in s.spec.  Chirp: the Bluestein step over N = N1 N2
+// points, Z_f = w_f conj(E_f), E the four-step FFT of conj(A filt) and A that
+// of z_j w_j; Z (f < L) lands in zb in natural order, the cluster
+// synchronised.
+template <int Set, bool Chirp, class Gather>
+__device__ void transform(const Plan& p, const Layout& l, const Smem& s,
+                          const float2* __restrict__ tab, const cg::cluster_group& cl, int rank,
+                          float2* __restrict__ xch, float2* __restrict__ zb,
+                          const Gather& gather) {
+  if constexpr (!Chirp) {
+    four_step<Set>(p, l, s, tab, cl, rank, xch, gather);
+  } else {
+    const float2* w = tab + p.chirp_off;
+    const float2* filt = tab + p.filt_off;
+    four_step<Set>(p, l, s, tab, cl, rank, xch, [&](int j) {
+      return j < p.L ? cmul(gather(j), __ldg(w + j)) : make_float2(0.f, 0.f);
+    });
+    each_owned(p, rank, [&](int k, int bi) {
+      const float2 u = cmul(s.spec[bi], __ldg(filt + k));
+      zb[k] = make_float2(u.x, -u.y);
+    });
+    cl.sync();
+    four_step<Set>(p, l, s, tab, cl, rank, xch, [&](int j) { return __ldcg(zb + j); });
+    each_owned(p, rank, [&](int f, int bi) {
+      const float2 e = s.spec[bi];
+      if (f < p.L) zb[f] = cmul(__ldg(w + f), make_float2(e.x, -e.y));
+    });
+    cl.sync();
+  }
+}
+
+// for_pairs over the transform's bins.  Chirp: CTA `rank` takes a run of f
+// in 0 .. L/2 (Z from zb) and keeps its bins at 2 (f - f0) and the next.
+template <bool Chirp, class Pair>
+__device__ void pairs(const Plan& p, const Smem& s, int rank, const float2* __restrict__ zb,
+                      const Pair& pair) {
+  if constexpr (!Chirp) {
+    for_pairs(p, s, rank, pair);
+  } else {
+    const int per = chirp_pairs(p), f0 = rank * per, f1 = min(p.L / 2 + 1, f0 + per);
+    for (int f = f0 + threadIdx.x; f < f1; f += blockDim.x) {
+      const int g = p.L - f, bf = 2 * (f - f0);
+      pair(f, g, __ldcg(zb + f), __ldcg(zb + (g == p.L ? 0 : g)), bf, g == f ? bf : bf + 1);
+    }
+  }
+}
+
+// store_samples over the transform's bins (chirp: a run of k a CTA, from zb)
+template <bool Chirp>
+__device__ void store(const Plan& p, const Smem& s, int rank, const float2* __restrict__ zb,
+                      float* out, float scale) {
+  if constexpr (!Chirp) {
+    store_samples(p, s, rank, out, scale);
+  } else {
+    const int K = (p.L + 1) / 2, per = (K + kCluster - 1) / kCluster;
+    for (int k = rank * per + threadIdx.x; k < min(K, (rank + 1) * per); k += blockDim.x) {
+      const float2 r = __ldcg(zb + k);
+      out[2 * k] = r.x * scale;
+      if (2 * k + 1 < p.L) out[2 * k + 1] = -r.y * scale;
+    }
+  }
+}
+
 // The packed input of a real row of device memory, zero from L on.
 struct RowLoad {
   const float* x;
@@ -295,7 +402,7 @@ struct RowLoad {
 };
 
 // y = Re ifft(m e^{i phi})[:L]; H (L + 1 bins) and phi saved for the backward.
-template <int Set>
+template <int Set, bool Chirp>
 __global__ void __launch_bounds__(kThreads)
 minphase_fwd_kernel(const float* __restrict__ h, float* __restrict__ y, float2* __restrict__ Hs,
                     float* __restrict__ phis, float* __restrict__ scratch,
@@ -310,13 +417,14 @@ minphase_fwd_kernel(const float* __restrict__ h, float* __restrict__ y, float2* 
   const float2* e = tab + p.post_off;
   float2* Hr = Hs + (size_t)row * (L + 1);
   float* phr = phis + (size_t)row * (L + 1);
-  float2* xch = reinterpret_cast<float2*>(scratch + (size_t)row * 4 * (L + 1));
-  float2* hc = xch + L + 1;              // the half spectrum between transforms
+  float2* xch = reinterpret_cast<float2*>(scratch) + (size_t)row * (p.xch_len + p.z_len + L + 1);
+  float2* zb = xch + p.xch_len;          // chirp: the convolution's input, then Z
+  float2* hc = zb + p.z_len;             // the half spectrum between transforms
   float* hr = reinterpret_cast<float*>(hc);
 
   // 1: H = fft(h, n); keep m = |H|, gather log(m + 1e-8)
-  four_step<Set>(p, l, s, tab, cl, rank, xch, RowLoad{h + (size_t)row * L, L});
-  for_pairs(p, s, rank, [&](int f, int g, float2 zf, float2 zg, int bf, int bg) {
+  transform<Set, Chirp>(p, l, s, tab, cl, rank, xch, zb, RowLoad{h + (size_t)row * L, L});
+  pairs<Chirp>(p, s, rank, zb, [&](int f, int g, float2 zf, float2 zg, int bf, int bg) {
     const float2 xf = split(zf, zg, __ldg(e + f)), xg = split(zg, zf, __ldg(e + g));
     const float mf = hypotf(xf.x, xf.y), mg = hypotf(xg.x, xg.y);
     Hr[f] = xf;
@@ -328,21 +436,21 @@ minphase_fwd_kernel(const float* __restrict__ h, float* __restrict__ y, float2* 
   });
   cl.sync();
   // 2: c = fft of the even sequence log m (real)
-  four_step<Set>(p, l, s, tab, cl, rank, xch, [&](int j) {
+  transform<Set, Chirp>(p, l, s, tab, cl, rank, xch, zb, [&](int j) {
     const int a = 2 * j, b = 2 * j + 1;
     return make_float2(__ldcg(hr + (a <= L ? a : n - a)), __ldcg(hr + (b <= L ? b : n - b)));
   });
-  for_pairs(p, s, rank, [&](int f, int g, float2 zf, float2 zg, int bf, int bg) {
+  pairs<Chirp>(p, s, rank, zb, [&](int f, int g, float2 zf, float2 zg, int bf, int bg) {
     hr[f] = split(zf, zg, __ldg(e + f)).x;
     hr[g] = split(zg, zf, __ldg(e + g)).x;
   });
   cl.sync();
   // 3: phi = -Im ifft(w c) = Im fft(w c) / n; Y = m e^{i phi}, packed for the inverse
-  four_step<Set>(p, l, s, tab, cl, rank, xch, [&](int j) {
+  transform<Set, Chirp>(p, l, s, tab, cl, rank, xch, zb, [&](int j) {
     const int a = 2 * j, b = 2 * j + 1;
     return make_float2(a < L ? 2.f * __ldcg(hr + a) : 0.f, b < L ? 2.f * __ldcg(hr + b) : 0.f);
   });
-  for_pairs(p, s, rank, [&](int f, int g, float2 zf, float2 zg, int bf, int bg) {
+  pairs<Chirp>(p, s, rank, zb, [&](int f, int g, float2 zf, float2 zg, int bf, int bg) {
     const float2 ef = __ldg(e + f), eg = __ldg(e + g);
     const float pf = split(zf, zg, ef).y / (float)n, pg = split(zg, zf, eg).y / (float)n;
     phr[f] = pf;
@@ -357,12 +465,12 @@ minphase_fwd_kernel(const float* __restrict__ h, float* __restrict__ y, float2* 
   });
   cl.sync();
   // 4: y = Re ifft(Y)[:L]
-  four_step<Set>(p, l, s, tab, cl, rank, xch, [&](int j) { return __ldcg(hc + j); });
-  store_samples(p, s, rank, y + (size_t)row * L, 1.f / (float)L);
+  transform<Set, Chirp>(p, l, s, tab, cl, rank, xch, zb, [&](int j) { return __ldcg(hc + j); });
+  store<Chirp>(p, s, rank, zb, y + (size_t)row * L, 1.f / (float)L);
 }
 
 // dh = dL/dh from g = dL/dy and the forward's saved H and phi.
-template <int Set>
+template <int Set, bool Chirp>
 __global__ void __launch_bounds__(kThreads)
 minphase_bwd_kernel(const float* __restrict__ gy, const float2* __restrict__ Hs,
                     const float* __restrict__ phis, float* __restrict__ dh,
@@ -378,14 +486,15 @@ minphase_bwd_kernel(const float* __restrict__ gy, const float2* __restrict__ Hs,
   const float2* e = tab + p.post_off;
   const float2* Hr = Hs + (size_t)row * (L + 1);
   const float* phr = phis + (size_t)row * (L + 1);
-  float2* xch = reinterpret_cast<float2*>(scratch + (size_t)row * 4 * (L + 1));
-  float2* hc = xch + L + 1;
+  float2* xch = reinterpret_cast<float2*>(scratch) + (size_t)row * (p.xch_len + p.z_len + L + 1);
+  float2* zb = xch + p.xch_len;
+  float2* hc = zb + p.z_len;
   float* hr = reinterpret_cast<float*>(hc);
 
   // 1: gW = fft(g, n) / n; with z_i = -phi: the gradient w.r.t. |H| through
   // the final product (kept) and gz = -i a, a = m (gW_i cos phi - gW_r sin phi)
-  four_step<Set>(p, l, s, tab, cl, rank, xch, RowLoad{gy + (size_t)row * L, L});
-  for_pairs(p, s, rank, [&](int f, int g, float2 zf, float2 zg, int bf, int bg) {
+  transform<Set, Chirp>(p, l, s, tab, cl, rank, xch, zb, RowLoad{gy + (size_t)row * L, L});
+  pairs<Chirp>(p, s, rank, zb, [&](int f, int g, float2 zf, float2 zg, int bf, int bg) {
     const float2 xs[2] = {split(zf, zg, __ldg(e + f)), split(zg, zf, __ldg(e + g))};
     const int fs[2] = {f, g}, bs[2] = {bf, bg};
 #pragma unroll
@@ -401,23 +510,23 @@ minphase_bwd_kernel(const float* __restrict__ gy, const float2* __restrict__ Hs,
   });
   cl.sync();
   // 2: fft(gz) = -i fft(a), a odd: its real part Im fft(a)
-  four_step<Set>(p, l, s, tab, cl, rank, xch, [&](int j) {
+  transform<Set, Chirp>(p, l, s, tab, cl, rank, xch, zb, [&](int j) {
     const int a = 2 * j, b = 2 * j + 1;
     return make_float2(a <= L ? __ldcg(hr + a) : -__ldcg(hr + (n - a)),
                        b <= L ? __ldcg(hr + b) : -__ldcg(hr + (n - b)));
   });
-  for_pairs(p, s, rank, [&](int f, int g, float2 zf, float2 zg, int bf, int bg) {
+  pairs<Chirp>(p, s, rank, zb, [&](int f, int g, float2 zf, float2 zg, int bf, int bg) {
     hr[f] = split(zf, zg, __ldg(e + f)).y;
     hr[g] = split(zg, zf, __ldg(e + g)).y;
   });
   cl.sync();
   // 3: the log branch's gradient Re ifft(w fft(gz)) = Re fft(w q) / n, then
   // gH = (g_mag + g_log / (m + 1e-8)) H / m (0 where m = 0), packed for the inverse
-  four_step<Set>(p, l, s, tab, cl, rank, xch, [&](int j) {
+  transform<Set, Chirp>(p, l, s, tab, cl, rank, xch, zb, [&](int j) {
     const int a = 2 * j, b = 2 * j + 1;
     return make_float2(a < L ? 2.f * __ldcg(hr + a) : 0.f, b < L ? 2.f * __ldcg(hr + b) : 0.f);
   });
-  for_pairs(p, s, rank, [&](int f, int g, float2 zf, float2 zg, int bf, int bg) {
+  pairs<Chirp>(p, s, rank, zb, [&](int f, int g, float2 zf, float2 zg, int bf, int bg) {
     const float2 ef = __ldg(e + f), eg = __ldg(e + g);
     const float2 xs[2] = {split(zf, zg, ef), split(zg, zf, eg)};
     const int fs[2] = {f, g}, bs[2] = {bf, bg};
@@ -434,8 +543,8 @@ minphase_bwd_kernel(const float* __restrict__ gy, const float2* __restrict__ Hs,
   });
   cl.sync();
   // 4: dh = Re n ifft(gH)[:L]
-  four_step<Set>(p, l, s, tab, cl, rank, xch, [&](int j) { return __ldcg(hc + j); });
-  store_samples(p, s, rank, dh + (size_t)row * L, 2.f);
+  transform<Set, Chirp>(p, l, s, tab, cl, rank, xch, zb, [&](int j) { return __ldcg(hc + j); });
+  store<Chirp>(p, s, rank, zb, dh + (size_t)row * L, 2.f);
 }
 
 bool read_plan(const int* h, Plan* p) {
@@ -451,15 +560,22 @@ bool read_plan(const int* h, Plan* p) {
   p->tw4_off = h[7];
   p->roots_off = h[8];
   p->post_off = h[9];
+  p->route = h[10];
+  p->chirp_off = h[11];
+  p->filt_off = h[12];
+  const bool chirp = p->route == kChirp;
+  p->xch_len = chirp ? p->N1 * p->N2 : p->L + 1;
+  p->z_len = chirp ? p->N1 * p->N2 : 0;
   if (h[5] != kCluster || p->N1 < 2 || p->N1 > kMaxN1 || p->N2 < 1 || p->N2 > kMaxN2 ||
-      p->N1 * p->N2 != p->L || p->slots < 1 || p->slots > kMaxSlots || p->n_stages < 1 ||
-      p->n_stages > kMaxStages)
+      p->L < 2 || (p->route != kDirect && !chirp) ||
+      (chirp ? p->N1 * p->N2 < 2 * p->L - 1 : p->N1 * p->N2 != p->L) || p->slots < 1 ||
+      p->slots > kMaxSlots || p->n_stages < 1 || p->n_stages > kMaxStages)
     return false;
   int len = 1;
   for (int s = 0; s < kMaxStages; ++s) {
-    p->radix[s] = h[10 + s];
-    p->tw_off[s] = h[10 + kMaxStages + s];
-    p->root_off[s] = h[10 + 2 * kMaxStages + s];
+    p->radix[s] = h[kHeaderTop + s];
+    p->tw_off[s] = h[kHeaderTop + kMaxStages + s];
+    p->root_off[s] = h[kHeaderTop + 2 * kMaxStages + s];
     if (s < p->n_stages) {
       const int r = p->radix[s];
       if (!(r == 2 || r == 3 || r == 4 || r == 5 || r == 8)) return false;
@@ -467,7 +583,7 @@ bool read_plan(const int* h, Plan* p) {
     }
   }
   if (len != p->N1) return false;
-  const int* slot = h + 10 + 3 * kMaxStages;
+  const int* slot = h + kHeaderTop + 3 * kMaxStages;
   const int* k1_of = slot + kMaxN1;
   for (int k = 0; k < kMaxN1; ++k) {
     const bool used = k < p->N1;
@@ -555,11 +671,19 @@ extern "C" int minphase_forward(const float* h, float* y, float* Hs, float* phis
   if (!read_plan(header, &p) || rows < 1) return (int)cudaErrorInvalidValue;
   const float2* tab = reinterpret_cast<const float2*>(table);
   float2* H2 = reinterpret_cast<float2*>(Hs);
-  switch (radix_set(p)) {
+  const int set = radix_set(p);
+  if (p.route == kChirp)
+    return set == kPow2
+               ? launch(minphase_fwd_kernel<kPow2, true>, rows, stream, p, h, y, H2, phis, scratch,
+                        tab, p)
+               : (int)cudaErrorInvalidValue;
+  switch (set) {
     case kPow2:
-      return launch(minphase_fwd_kernel<kPow2>, rows, stream, p, h, y, H2, phis, scratch, tab, p);
+      return launch(minphase_fwd_kernel<kPow2, false>, rows, stream, p, h, y, H2, phis, scratch,
+                    tab, p);
     case kSmall:
-      return launch(minphase_fwd_kernel<kSmall>, rows, stream, p, h, y, H2, phis, scratch, tab, p);
+      return launch(minphase_fwd_kernel<kSmall, false>, rows, stream, p, h, y, H2, phis, scratch,
+                    tab, p);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -571,11 +695,19 @@ extern "C" int minphase_backward(const float* g, const float* Hs, const float* p
   if (!read_plan(header, &p) || rows < 1) return (int)cudaErrorInvalidValue;
   const float2* tab = reinterpret_cast<const float2*>(table);
   const float2* H2 = reinterpret_cast<const float2*>(Hs);
-  switch (radix_set(p)) {
+  const int set = radix_set(p);
+  if (p.route == kChirp)
+    return set == kPow2
+               ? launch(minphase_bwd_kernel<kPow2, true>, rows, stream, p, g, H2, phis, dh, scratch,
+                        tab, p)
+               : (int)cudaErrorInvalidValue;
+  switch (set) {
     case kPow2:
-      return launch(minphase_bwd_kernel<kPow2>, rows, stream, p, g, H2, phis, dh, scratch, tab, p);
+      return launch(minphase_bwd_kernel<kPow2, false>, rows, stream, p, g, H2, phis, dh, scratch,
+                    tab, p);
     case kSmall:
-      return launch(minphase_bwd_kernel<kSmall>, rows, stream, p, g, H2, phis, dh, scratch, tab, p);
+      return launch(minphase_bwd_kernel<kSmall, false>, rows, stream, p, g, H2, phis, dh, scratch,
+                    tab, p);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -41,6 +41,27 @@
 // in a fixed order: no atomics, bit-identical run to run.  Both kernels take
 // per-bin weights, so the pair serves forward and backward of stft and
 // istft.  Complex data is interleaved float (torch.view_as_real layout).
+//
+// The chirp route takes every other n_fft from 2 to 8192 (odd ones, and
+// even ones whose n/2 has a prime factor above 31 or two above 5), as the
+// TPU's tap basis does.  The DFT of a frame is a Bluestein step: with the
+// chirp w_k = exp(-i pi k^2 / n), X_f = w_f sum_s (x_s w_s) conj(w_{f-s}), a
+// linear convolution that a circular one of M >= support + F - 1 points
+// holds exactly.  M is a length of the butterflies alone (8, 4, 2, 3, 5;
+// the kSmall instantiation), and the convolution runs as the forward
+// stages, a pointwise product with the filter's spectrum (built on the host
+// in float64, divided by M) and its conjugate, and the forward stages again
+// (FFT(conj(A B)) = conj(M IFFT(A B))), so no inverse stage is compiled.  A
+// frame is one complex sequence with a zero imaginary part: two frames in
+// one sequence would need M >= 2 n - 1, which at n = 8191 no longer fits
+// a frame's two buffers in shared memory; at M <= 12288 one frame's take
+// 204 KB.  The analysis reads the signal straight from device memory in its
+// first stage (w_s folded in) and writes the bins as the packed route does.
+// The synthesis is the adjoint: y_s = Re(w_s conj(E_s)) from the bins'
+// conj(w_f bin_w z_f) through the synthesis filter (lags s - f); the frames
+// of a tile of output blocks run in chunks as many as shared memory holds,
+// and each output sample adds its frames in ascending order (a chunk's sum
+// goes through the output itself, which only its own thread touches).
 
 #include "fft.cuh"
 
@@ -52,9 +73,12 @@ namespace {
 constexpr int kThreads = 256, kThreadsLong = 512, kLongSpectrum = 256;
 constexpr int kMaxTile = 16;            // frames (analysis) or blocks (synthesis) per CTA
 
+constexpr int kPacked = 0, kChirp = 1;    // ops/stft.py PACKED, CHIRP
+
 struct Plan {
   int n_fft, hop, support, M, n_stages, pad_shift, post_off;
   int radix[kMaxStages], tw_off[kMaxStages], root_off[kMaxStages];
+  int route, chirp_off, ba_off, bs_off;   // M: n/2 (packed) or the convolution's length (chirp)
 };
 
 // The analysis's first stage reads the signal tile directly: packed point k
@@ -201,6 +225,121 @@ stft_synthesis_kernel(const float2* __restrict__ z, const float* __restrict__ wi
   }
 }
 
+
+// The chirp route's first stage of the analysis: a_s = win[s] x[fr hop + s] w_s,
+// zero from the window's support on.
+struct ChirpSignalLoad {
+  const float* sig;
+  const float* win;
+  const float2* chirp;
+  int hop, support;
+  __device__ float2 operator()(int fr, int k) const {
+    if (k >= support) return make_float2(0.f, 0.f);
+    const float v = __ldg(win + k) * sig[(size_t)fr * hop + k];
+    const float2 c = __ldg(chirp + k);
+    return make_float2(v * c.x, v * c.y);
+  }
+};
+
+// ... of the synthesis: a_f = conj(bin_w[f] z[f, t0 + fr]) w_f, zero from F on.
+struct ChirpSpecLoad {
+  const float2* z;
+  const float* bin_w;
+  const float2* chirp;
+  int T, F;
+  __device__ float2 operator()(int fr, int k) const {
+    if (k >= F) return make_float2(0.f, 0.f);
+    const float2 v = z[(size_t)k * T + fr];
+    const float bw = __ldg(bin_w + k);
+    return cmul(make_float2(bw * v.x, -bw * v.y), __ldg(chirp + k));
+  }
+};
+
+// The circular convolution of the first stage's sequences with a filter of
+// spectrum filt (divided by M), returned as conj(c): the forward stages,
+// A <- conj(A filt), the forward stages again.  kmax: outputs needed.
+template <class Load>
+__device__ const float2* chirp_convolve(const Plan& p, const float2* __restrict__ tab,
+                                        const Load& load, float2* buf_a, float2* buf_b, int nfr,
+                                        int FS, const float2* __restrict__ filt, int kmax) {
+  const int R0 = p.radix[0];
+  run_stage<kSmall>(R0, load, buf_a, nfr, p.M, FS, p.pad_shift, 1, tab + p.tw_off[0],
+                    tab + p.root_off[0], p.M);
+  float2* A = run_fft<kSmall>(p, tab, buf_a, buf_b, nfr, FS, R0, 1, p.M);
+  for (int i = threadIdx.x; i < nfr * p.M; i += blockDim.x) {
+    const int fr = i / p.M, k = i - fr * p.M;
+    float2* v = A + fr * FS + padded(k, p.pad_shift);
+    const float2 u = cmul(*v, __ldg(filt + k));
+    *v = make_float2(u.x, -u.y);
+  }
+  return run_fft<kSmall>(p, tab, A, A == buf_a ? buf_b : buf_a, nfr, FS, 1, 0, kmax);
+}
+
+// As stft_analysis_kernel, for the chirp route: X_f = bin_w[f] w_f conj(E_f).
+template <int Threads>
+__global__ void __launch_bounds__(Threads, 2)
+stft_chirp_analysis_kernel(const float* __restrict__ x, const float* __restrict__ win,
+                           const float2* __restrict__ tab, const float* __restrict__ bin_w,
+                           float2* __restrict__ out, Plan p, int nb, int T, int Tt, int FS) {
+  extern __shared__ float4 smem_f4[];
+  float2* buf_a = reinterpret_cast<float2*>(smem_f4);
+  float2* buf_b = buf_a + Tt * FS;
+  const int n = blockIdx.y;
+  const int t0 = blockIdx.x * Tt;
+  const int nt = min(Tt, T - t0);
+  const int F = p.n_fft / 2 + 1;
+  const float2* chirp = tab + p.chirp_off;
+  const ChirpSignalLoad load{x + ((size_t)n * nb + t0) * p.hop, win, chirp, p.hop, p.support};
+  const float2* E = chirp_convolve(p, tab, load, buf_a, buf_b, nt, FS, tab + p.ba_off, F);
+  float2* on = out + (size_t)n * F * T + t0;
+  for (int i = threadIdx.x; i < nt * F; i += blockDim.x) {
+    const int f = i / nt, tt = i - f * nt;
+    const float2 e = E[tt * FS + padded(f, p.pad_shift)];
+    const float2 c = cmul(__ldg(chirp + f), make_float2(e.x, -e.y));
+    const float bw = __ldg(bin_w + f);
+    on[(size_t)f * T + tt] = make_float2(c.x * bw, c.y * bw);
+  }
+}
+
+// As stft_synthesis_kernel, for the chirp route; fc frames a chunk.
+template <int Threads>
+__global__ void __launch_bounds__(Threads, 2)
+stft_chirp_synthesis_kernel(const float2* __restrict__ z, const float* __restrict__ win,
+                            const float2* __restrict__ tab, const float* __restrict__ bin_w,
+                            float* __restrict__ out, Plan p, int nb_out, int T, int Tb, int fc,
+                            int FS) {
+  extern __shared__ float4 smem_f4[];
+  const int taps = (p.support + p.hop - 1) / p.hop;
+  float2* buf_a = reinterpret_cast<float2*>(smem_f4);
+  float2* buf_b = buf_a + fc * FS;
+  const int n = blockIdx.y;
+  const int b0 = blockIdx.x * Tb;
+  const int nbt = min(Tb, nb_out - b0);
+  const int tlo = max(0, b0 - taps + 1), thi = min(T, b0 + nbt);
+  const int F = p.n_fft / 2 + 1;
+  const float2* chirp = tab + p.chirp_off;
+  float* on = out + ((size_t)n * nb_out + b0) * p.hop;
+  for (int c0 = tlo; c0 < thi; c0 += fc) {
+    const int nfr = min(fc, thi - c0);
+    const ChirpSpecLoad load{z + (size_t)n * F * T + c0, bin_w, chirp, T, F};
+    const float2* E = chirp_convolve(p, tab, load, buf_a, buf_b, nfr, FS, tab + p.bs_off,
+                                     p.support);
+    // each output sample adds this chunk's frames, ascending
+    for (int i = threadIdx.x; i < nbt * p.hop; i += blockDim.x) {
+      const int bb = i / p.hop, h = i - bb * p.hop, b = b0 + bb;
+      float acc = c0 == tlo ? 0.f : on[i];
+      for (int t = max(c0, b - taps + 1); t < min(c0 + nfr, b + 1); ++t) {
+        const int s = (b - t) * p.hop + h;
+        if (s >= p.support) continue;
+        const float2 e = E[(t - c0) * FS + padded(s, p.pad_shift)], c = __ldg(chirp + s);
+        acc = fmaf(__ldg(win + s), c.x * e.x + c.y * e.y, acc);
+      }
+      on[i] = acc;
+    }
+    __syncthreads();
+  }
+}
+
 bool read_plan(const int* h, Plan* p) {
   p->n_fft = h[0];
   p->hop = h[1];
@@ -209,8 +348,16 @@ bool read_plan(const int* h, Plan* p) {
   p->n_stages = h[4];
   p->pad_shift = h[5];
   p->post_off = h[6];
-  if (p->n_stages < 1 || p->n_stages > kMaxStages || 2 * p->M != p->n_fft || p->hop < 1 ||
-      p->support < 1 || p->support > p->n_fft)
+  p->route = h[7 + 3 * kMaxStages];
+  const bool chirp = p->route == kChirp;
+  if (chirp) {
+    p->chirp_off = h[8 + 3 * kMaxStages];
+    p->ba_off = h[9 + 3 * kMaxStages];
+    p->bs_off = h[10 + 3 * kMaxStages];
+  }
+  if (p->n_stages < 1 || p->n_stages > kMaxStages || p->hop < 1 || p->support < 1 ||
+      p->support > p->n_fft || (p->route != kPacked && !chirp) ||
+      (!chirp && 2 * p->M != p->n_fft) || (chirp && p->M < p->support + p->n_fft / 2))
     return false;
   int len = 1;
   for (int s = 0; s < kMaxStages; ++s) {
@@ -220,7 +367,8 @@ bool read_plan(const int* h, Plan* p) {
     if (s < p->n_stages) {
       const int r = p->radix[s];
       if (!(r == 2 || r == 3 || r == 4 || r == 5 || r == 8 || r == 7 || r == 11 || r == 13 || r == 17 ||
-            r == 19 || r == 23 || r == 29 || r == 31))
+            r == 19 || r == 23 || r == 29 || r == 31) ||
+          (chirp && r != 2 && r != 3 && r != 4 && r != 5 && r != 8))
         return false;
       len *= r;
     }
@@ -269,6 +417,44 @@ int launch_synthesis(cudaStream_t stream, const float* z, const float* win, cons
   return (int)cudaGetLastError();
 }
 
+int chirp_analysis(cudaStream_t stream, const float* x, const float* win, const float* table,
+                   const float* bin_w, float* out, const Plan& p, int N, int nb, int T) {
+  const void* kernel = (const void*)stft_chirp_analysis_kernel<kThreads>;
+  static const int attr = allow_smem(kernel);
+  if (attr) return attr;
+  const int FS = frame_stride(p);
+  auto smem = [&](int tile) { return (size_t)2 * tile * FS * sizeof(float2); };
+  const int Tt =
+      choose_tile(kernel, kThreads, N, T, kMaxTile, smem, [](int tile) { return tile + 1; });
+  if (Tt == 0) return (int)cudaErrorInvalidValue;
+  stft_chirp_analysis_kernel<kThreads><<<dim3((T + Tt - 1) / Tt, N), kThreads, smem(Tt),
+                                         stream>>>(
+      x, win, reinterpret_cast<const float2*>(table), bin_w, reinterpret_cast<float2*>(out), p,
+      nb, T, Tt, FS);
+  return (int)cudaGetLastError();
+}
+
+int chirp_synthesis(cudaStream_t stream, const float* z, const float* win, const float* table,
+                    const float* bin_w, float* out, const Plan& p, int N, int nb_out, int T) {
+  const void* kernel = (const void*)stft_chirp_synthesis_kernel<kThreads>;
+  static const int attr = allow_smem(kernel);
+  if (attr) return attr;
+  const int FS = frame_stride(p);
+  const int taps = (p.support + p.hop - 1) / p.hop;
+  const int fit = (int)(kSmemMax / (2 * FS * sizeof(float2)));      // frames a chunk can hold
+  auto chunk = [&](int tile) { return tile + taps - 1 < fit ? tile + taps - 1 : fit; };
+  auto smem = [&](int tile) { return (size_t)2 * chunk(tile) * FS * sizeof(float2); };
+  if (fit < 1) return (int)cudaErrorInvalidValue;
+  const int Tb = choose_tile(kernel, kThreads, N, nb_out, kMaxTile, smem,
+                             [&](int tile) { return tile + taps; });
+  if (Tb == 0) return (int)cudaErrorInvalidValue;
+  stft_chirp_synthesis_kernel<kThreads><<<dim3((nb_out + Tb - 1) / Tb, N), kThreads, smem(Tb),
+                                          stream>>>(
+      reinterpret_cast<const float2*>(z), win, reinterpret_cast<const float2*>(table), bin_w,
+      out, p, nb_out, T, Tb, chunk(Tb), FS);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int stft_analysis(const float* x, const float* win, const float* table,
@@ -276,6 +462,7 @@ extern "C" int stft_analysis(const float* x, const float* win, const float* tabl
                              int T, cudaStream_t stream) {
   Plan p;
   if (!read_plan(header, &p) || N < 1 || T < 1) return (int)cudaErrorInvalidValue;
+  if (p.route == kChirp) return chirp_analysis(stream, x, win, table, bin_w, out, p, N, nb, T);
   switch (radix_set(p)) {
 #define LAUNCH(set, threads) \
   return launch_analysis<set, threads>(stream, x, win, table, bin_w, out, p, N, nb, T)
@@ -302,6 +489,7 @@ extern "C" int stft_synthesis(const float* z, const float* win, const float* tab
   Plan p;
   if (!read_plan(header, &p) || N < 1 || T < 1) return (int)cudaErrorInvalidValue;
   if (nb_out != T + (p.support + p.hop - 1) / p.hop - 1) return (int)cudaErrorInvalidValue;
+  if (p.route == kChirp) return chirp_synthesis(stream, z, win, table, bin_w, out, p, N, nb_out, T);
   switch (radix_set(p)) {
 #define LAUNCH(set, threads) \
   return launch_synthesis<set, threads>(stream, z, win, table, bin_w, out, p, N, nb_out, T)

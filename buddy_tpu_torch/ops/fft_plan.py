@@ -1,6 +1,7 @@
 """Host-side plans of the complex FFTs that the CUDA kernels run in shared
-memory (``csrc/fft.cuh``): K2's packed real FFTs (``ops/stft.py::StftPlan``)
-and K3's frame-axis convolutions (``ConvFftPlan``).
+memory (``csrc/fft.cuh``): K2's packed real FFTs and its chirp-z route
+(``ops/stft.py::StftPlan``), K3's frame-axis convolutions
+(``ConvFftPlan``) and K5's row transforms (``MinPhasePlan``).
 
 A plan is a list of radices and, for each Stockham stage s of radix R
 after stages of total length Ns, the twiddles exp(-2 pi i k r / (Ns R)) at
@@ -84,6 +85,21 @@ def fft_cost(n: int) -> float:
     return n * sum(_PASS_COST + _POINT_COST.get(R, 2.0 * R) for R in radices)
 
 
+def butterfly_radices(m: int):
+    """fft_radices(m) where it uses the butterflies alone (radices 8, 4, 2,
+    3, 5), else None."""
+    radices = fft_radices(m)
+    return radices if radices is not None and set(radices) <= set(BUTTERFLIES) else None
+
+
+@lru_cache(maxsize=None)
+def chirp_fft_size(lo: int) -> int:
+    """The length of a Bluestein (chirp-z) step's circular convolution: the
+    butterflies-only length of least cost from ``lo`` up to twice that."""
+    return min((m for m in range(max(lo, 2), 2 * max(lo, 2) + 1) if butterfly_radices(m)),
+               key=lambda m: (fft_cost(m), m))
+
+
 @lru_cache(maxsize=None)
 def conv_fft_size(T: int, Nf: int) -> int:
     """K3's transform length for T frames and Nf taps: the plannable length
@@ -116,9 +132,13 @@ class ConvFftPlan:
 # --- K5: the minimum-phase chain, one thread-block cluster a row ---------------
 MINPHASE_CLUSTER = 16                 # csrc/minphase.cu kCluster: CTAs a row (a non-portable size)
 MINPHASE_MAX_N1 = 128                 # longest column FFT (Stockham, butterflies only)
-MINPHASE_MAX_N2 = 128                 # csrc/minphase.cu kMaxN2: longest direct DFT
+MINPHASE_MAX_N2 = 1040                # csrc/minphase.cu kMaxN2: longest direct DFT (shared memory)
 MINPHASE_MAX_SLOTS = 32               # csrc/minphase.cu kMaxSlots: column-FFT outputs a CTA owns
-MINPHASE_HEADER = 10 + 3 * MAX_STAGES + MINPHASE_MAX_N1 + MINPHASE_CLUSTER * MINPHASE_MAX_SLOTS
+# the longest row: a chirp step's convolution of 2 L - 1 points as 128 x MINPHASE_MAX_N2
+MINPHASE_MAX_L = MINPHASE_MAX_N1 * MINPHASE_MAX_N2 // 2
+MINPHASE_DIRECT, MINPHASE_CHIRP = 0, 1    # csrc/minphase.cu kDirect, kChirp
+MINPHASE_HEADER = 13 + 3 * MAX_STAGES + MINPHASE_MAX_N1 + MINPHASE_CLUSTER * MINPHASE_MAX_SLOTS
+_DFT_COST = 16                        # per point of a transform, besides its N2 direct sums
 
 
 def minphase_factors(L: int):
@@ -128,11 +148,31 @@ def minphase_factors(L: int):
     any length; None where no such pair exists.  128 x 101 at the main
     path's L = 128 (Nf + 1), Nf = 100."""
     for n1 in range(min(L, MINPHASE_MAX_N1), 1, -1):
-        if L % n1 == 0 and L // n1 <= MINPHASE_MAX_N2:
-            radices = fft_radices(n1)
-            if radices is not None and set(radices) <= set(BUTTERFLIES):
-                return n1, L // n1
+        if L % n1 == 0 and L // n1 <= MINPHASE_MAX_N2 and butterfly_radices(n1) is not None:
+            return n1, L // n1
     return None
+
+
+def minphase_route(L: int):
+    """How K5 runs the complex FFT of L points: (MINPHASE_DIRECT, N1, N2),
+    the four-step FFT of ``minphase_factors``, or (MINPHASE_CHIRP, N1, N2), a
+    Bluestein step whose circular convolution of N1 N2 >= 2 L - 1 points runs
+    as two such four-step FFTs (N1 = 128, or the power of two >= 2 L - 1
+    below that), whichever costs fewer operations (a four-step FFT of N
+    points ~ N (N2 + 16)).  The main path's 128 x 101 is direct.  Raises
+    ValueError outside 2 <= L <= MINPHASE_MAX_L."""
+    if not 2 <= L <= MINPHASE_MAX_L:
+        raise ValueError(f"K5 has no plan for rows of L={L}: it runs rows of 2 to "
+                         f"{MINPHASE_MAX_L} samples (a chirp step's convolution of 2 L - 1 "
+                         f"points as {MINPHASE_MAX_N1} x {MINPHASE_MAX_N2}, the longest direct "
+                         f"DFT that fits in shared memory)")
+    n1 = min(MINPHASE_MAX_N1, 1 << (2 * L - 2).bit_length())
+    chirp = (MINPHASE_CHIRP, n1, -(-(2 * L - 1) // n1))
+    direct = minphase_factors(L)
+    if direct is not None and L * (direct[1] + _DFT_COST) <= \
+            2 * chirp[1] * chirp[2] * (chirp[2] + _DFT_COST):
+        return (MINPHASE_DIRECT,) + direct
+    return chirp
 
 
 def cluster_layout(n1: int, ctas: int):
@@ -159,31 +199,41 @@ def cluster_layout(n1: int, ctas: int):
     return slot, k1_of
 
 
+def _chirp(L: int, idx) -> np.ndarray:
+    """exp(-i pi idx^2 / L), idx^2 reduced modulo 2 L exactly."""
+    idx = np.asarray(idx, np.int64)
+    return np.exp(-1j * np.pi * ((idx * idx) % (2 * L)) / L)
+
+
 class MinPhasePlan:
     """K5's plan for rows of L samples (n = 2 L): every transform of the
     chain is a packed complex FFT of L points, split into (or formed from)
-    the n/2 + 1 bins of a real sequence of n points.  The L points run as
-    a four-step FFT, L = N1 N2 (``minphase_factors``): N2 column FFTs of N1
-    points through the Stockham stages of csrc/fft.cuh, the twiddles
-    exp(-2 pi i j2 k1 / L), then N1 direct DFTs of N2 points.
+    the n/2 + 1 bins of a real sequence of n points (``minphase_route``).
+    Direct: the L points run as a four-step FFT, L = N1 N2: N2 column FFTs
+    of N1 points through the Stockham stages of csrc/fft.cuh, the twiddles
+    exp(-2 pi i j2 k1 / L), then N1 direct DFTs of N2 points.  Chirp: a
+    Bluestein step, Z_f = w_f sum_j (z_j w_j) conj(w_{f-j}) with the chirp
+    w_j = exp(-i pi j^2 / L), its circular convolution of N = N1 N2 >= 2 L - 1
+    points run as that four-step FFT of N, the product with the filter's
+    spectrum, and the four-step FFT again on the conjugate.
 
     ``table64`` (complex128, built in float64; the card reads it as
     complex64 from ``table``): the Stockham stages of N1 at 0, the four-step
-    twiddles at ``tw4_off + j2 N1 + k1``, the N2 roots exp(-2 pi i q / N2)
-    at ``roots_off`` and the split's exp(-2 pi i f / n), f = 0..L, at
-    ``post_off``.  ``header`` (int32, what csrc/minphase.cu reads): [L, N1,
-    N2, stages, pad_shift, CTAs, slots, tw4_off, roots_off, post_off,
-    radices, tw_off, root_off (each MAX_STAGES), slot (MINPHASE_MAX_N1),
-    k1_of (MINPHASE_MAX_SLOTS a CTA, -1 past the end)].
+    twiddles exp(-2 pi i j2 k1 / N) at ``tw4_off + j2 N1 + k1``, the N2
+    roots exp(-2 pi i q / N2) at ``roots_off``, the split's
+    exp(-2 pi i f / n), f = 0..L, at ``post_off``; chirp only, w_j (j < L)
+    at ``chirp_off`` and the spectrum of conj(w_l) (lags |l| < L at l mod N),
+    divided by N, at ``filt_off``.  ``header`` (int32, what csrc/minphase.cu
+    reads): [L, N1, N2, stages, pad_shift, CTAs, slots, tw4_off, roots_off,
+    post_off, route, chirp_off, filt_off, radices, tw_off, root_off (each
+    MAX_STAGES), slot (MINPHASE_MAX_N1), k1_of (MINPHASE_MAX_SLOTS a CTA, -1
+    past the end)].  ``scratch_floats``: the row's scratch in device memory.
     Raises ValueError for an L the kernel cannot run."""
 
     def __init__(self, L: int, device=None):
-        factors = minphase_factors(L)
-        if factors is None:
-            raise ValueError(f"K5 has no plan for rows of L={L} (n/2 = {L}): no factor "
-                             f"N1 <= {MINPHASE_MAX_N1} of radices {BUTTERFLIES} leaves "
-                             f"N2 <= {MINPHASE_MAX_N2}")
-        self.L, (self.N1, self.N2) = L, factors
+        self.L = L
+        self.route, self.N1, self.N2 = minphase_route(L)
+        N = self.N1 * self.N2
         self.radices = fft_radices(self.N1)
         stages, self.tw_off, self.root_off = stage_tables(self.radices)
         self.pad_shift = pad_shift(self.N1)
@@ -191,7 +241,7 @@ class MinPhasePlan:
         self.slots = max(len(ks) for ks in self.k1_of)
         assert self.slots <= MINPHASE_MAX_SLOTS
         j2, k1 = np.meshgrid(np.arange(self.N2), np.arange(self.N1), indexing="ij")
-        tw4 = np.exp(-2j * np.pi * j2 * k1 / L).ravel()
+        tw4 = np.exp(-2j * np.pi * j2 * k1 / N).ravel()
         roots = np.exp(-2j * np.pi * np.arange(self.N2) / self.N2)
         post = np.exp(-2j * np.pi * np.arange(L + 1) / (2 * L))
         post[[0, L]] = 1.0, -1.0          # exact: DC's and Nyquist's bins come out real
@@ -199,12 +249,26 @@ class MinPhasePlan:
         self.tw4_off = len(stages64)
         self.roots_off = self.tw4_off + len(tw4)
         self.post_off = self.roots_off + len(roots)
-        self.table64 = np.concatenate([stages64, tw4, roots, post])
+        parts = [stages64, tw4, roots, post]
+        self.chirp_off = self.filt_off = 0
+        # the row's scratch: the exchange (N + 1 float2 direct, N chirp), the
+        # chirp's sequence between its two FFTs (N), the half spectrum (L + 1)
+        self.scratch_floats = 4 * (L + 1)
+        if self.route == MINPHASE_CHIRP:
+            lags = np.arange(-L + 1, L)
+            filt = np.zeros(N, np.complex128)
+            filt[lags % N] = np.conj(_chirp(L, lags))
+            self.chirp_off = self.post_off + len(post)
+            self.filt_off = self.chirp_off + L
+            parts += [_chirp(L, np.arange(L)), np.fft.fft(filt) / N]
+            self.scratch_floats = 4 * N + 2 * (L + 1)
+        self.table64 = np.concatenate(parts)
         pad = [0] * (MAX_STAGES - len(self.radices))
         k1_of = sum((ks + [-1] * (MINPHASE_MAX_SLOTS - len(ks)) for ks in self.k1_of), [])
         self.header = np.array(
             [L, self.N1, self.N2, len(self.radices), self.pad_shift, MINPHASE_CLUSTER,
-             self.slots, self.tw4_off, self.roots_off, self.post_off]
+             self.slots, self.tw4_off, self.roots_off, self.post_off, self.route,
+             self.chirp_off, self.filt_off]
             + list(self.radices) + pad + self.tw_off + pad + self.root_off + pad
             + self.slot + [0] * (MINPHASE_MAX_N1 - self.N1) + k1_of, np.int32)
         assert len(self.header) == MINPHASE_HEADER

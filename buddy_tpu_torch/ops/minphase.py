@@ -14,8 +14,8 @@ backward.
 backward kernel implements).  Wrappers, each counting its launches (one a
 call): ``minimum_phase_version`` and ``minimum_phase_backward``.  CPU
 tensors take the plain versions (autograd differentiates the forward); CUDA
-tensors launch the kernels or raise (a row length that K5 cannot plan
-raises ValueError).
+tensors launch the kernels or raise (K5 runs rows of 2 to
+``fft_plan.MINPHASE_MAX_L`` samples; another length raises ValueError).
 """
 
 from __future__ import annotations
@@ -121,7 +121,7 @@ def _launch_forward(h: torch.Tensor):
     phis = torch.empty((N, L + 1), device=h.device, dtype=torch.float32)
     lib = _build.load("minphase", _SIGNATURES)
     p = _build.ptr
-    scratch = torch.empty((N, 4 * (L + 1)), device=h.device, dtype=torch.float32)
+    scratch = torch.empty((N, plan.scratch_floats), device=h.device, dtype=torch.float32)
     err = lib.minphase_forward(p(h2), p(y), p(Hs), p(phis), p(scratch), p(plan.table),
                                plan.header_ptr, N, _build.stream(h.device))
     _build.check(err, "minphase_forward")
@@ -143,7 +143,7 @@ def minimum_phase_backward(Hs: torch.Tensor, phis: torch.Tensor, g: torch.Tensor
     dh = torch.empty_like(g2)
     lib = _build.load("minphase", _SIGNATURES)
     p = _build.ptr
-    scratch = torch.empty((N, 4 * (L + 1)), device=g.device, dtype=torch.float32)
+    scratch = torch.empty((N, plan.scratch_floats), device=g.device, dtype=torch.float32)
     err = lib.minphase_backward(p(g2), p(Hs.contiguous()), p(phis.contiguous()), p(dh),
                                 p(scratch), p(plan.table), plan.header_ptr, N,
                                 _build.stream(g.device))

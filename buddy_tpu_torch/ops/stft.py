@@ -14,8 +14,10 @@ FFT of every frame, windowed and overlap-added).  They replace the TPU's
 conv-STFT (``_stft_conv`` / ``_istft_conv``), a tap sum against a dense
 window-folded DFT basis, by an FFT per frame in shared memory.  Both read a
 ``StftPlan`` built here once per geometry: the radices of the complex FFT
-of length n_fft/2 (a real frame is packed as n_fft/2 complex values), the
-twiddle tables computed in float64 and stored as float32, the window's
+of length n_fft/2 (a real frame is packed as n_fft/2 complex values; the
+packed route of every shipped geometry) or, for any other n_fft up to
+8192, of a Bluestein step's convolution (the chirp route), the twiddle and
+chirp tables computed in float64 and stored as float32, the window's
 support and the per-bin weights.
 
 Each kernel takes a vector of per-bin weights and is the other's adjoint:
@@ -38,14 +40,17 @@ import torch.nn.functional as F
 from buddy_tpu_torch.device import resolve_device
 from buddy_tpu_torch.ops import _build
 from buddy_tpu_torch.ops.fft_plan import (  # noqa: F401  (DIRECT_PRIMES: for the plan's tests)
-    DIRECT_PRIMES, MAX_STAGES, fft_radices, pad_shift, stage_tables)
+    DIRECT_PRIMES, MAX_STAGES, butterfly_radices, chirp_fft_size, fft_radices, pad_shift,
+    stage_tables)
 
 _SIGNATURES = {
     name: [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     for name in ("stft_analysis", "stft_synthesis")
 }
 
-MAX_HALF = 4096                       # largest n_fft/2 the kernels take
+MAX_HALF = 4096                       # largest n_fft/2 the packed route takes
+MAX_N_FFT = 8192                      # largest n_fft the kernels take (shared memory)
+PACKED, CHIRP = 0, 1                  # the kernels' two routes (csrc/stft.cu)
 
 
 def hann_window(n: int) -> np.ndarray:
@@ -75,14 +80,26 @@ def pad_spec_frames(spec: torch.Tensor, multiple: int = 16) -> torch.Tensor:
 class StftPlan:
     """One STFT geometry as the kernels read it, with its tensors on ``device``.
 
+    Two routes.  ``PACKED`` (even n_fft whose n/2 <= MAX_HALF factors for
+    ``fft_radices``: every shipped geometry): a frame is a complex FFT of
+    n/2 points, split into the bins.  ``CHIRP`` (any other n_fft up to
+    MAX_N_FFT): the DFT of a frame as a Bluestein step, a circular
+    convolution of M = ``chirp_fft_size(support + F - 1)`` points run as
+    two forward FFTs of M with the filter's spectrum between them.
+
     ``table`` holds, as interleaved complex float32: for each Stockham stage
     s of radix R after stages of total length Ns, the twiddles
     exp(-2 pi i k r / (Ns R)) at [tw_off[s] + k (R - 1) + r - 1] (k < Ns,
     1 <= r < R); for a direct-DFT stage its R roots exp(-2 pi i q / R) at
-    root_off[s]; and the post-twiddles exp(-2 pi i f / n) of the real split
-    at post_off + f (f <= n/2).  ``header`` is the int32 vector the kernels'
-    host code reads.  ``radices`` is None where the geometry cannot be
-    planned: the plain versions still take it, the kernels do not.
+    root_off[s]; then, packed, the post-twiddles exp(-2 pi i f / n) of the
+    real split at post_off + f (f <= n/2); chirp, the chirp
+    w_k = exp(-i pi k^2 / n) at chirp_off + k (k < max(support, F)) and the
+    spectra of the analysis's and the synthesis's filters conj(w_l) (lags
+    l = f - s and s - f, at l mod M), divided by M, at ba_off and bs_off.
+    ``header`` is the int32 vector the kernels' host code reads.
+    ``radices`` (of the complex FFT the kernels run) is None where the
+    geometry cannot be planned (n_fft < 2 or above MAX_N_FFT): the plain
+    versions still take it, the kernels do not.
     """
 
     def __init__(self, n_fft: int, hop: int, window: np.ndarray, device=None):
@@ -102,15 +119,23 @@ class StftPlan:
             edge[-1] = True
         istft[edge] = 1.0 / n_fft
 
-        self.radices = fft_radices(half) if n_fft % 2 == 0 and half <= MAX_HALF else None
+        self.route = self.radices = self.header = None
         table = np.zeros(0, np.complex64)
-        self.header = None
-        if self.radices is not None:
+        if n_fft % 2 == 0 and half <= MAX_HALF and fft_radices(half) is not None:
+            self.route, self.M, self.radices = PACKED, half, fft_radices(half)
             table = self._tables(half)
+            tail = []
+        elif 2 <= n_fft <= MAX_N_FFT:
+            self.route, self.M = CHIRP, chirp_fft_size(self.support + self.n_bins - 1)
+            self.radices = butterfly_radices(self.M)
+            table = self._chirp_tables()
+            tail = [self.chirp_off, self.ba_off, self.bs_off]
+        if self.radices is not None:
             pad = [0] * (MAX_STAGES - len(self.radices))
-            self.header = np.array([n_fft, hop, self.support, half, len(self.radices),
+            self.header = np.array([n_fft, hop, self.support, self.M, len(self.radices),
                                     self.pad_shift, self.post_off] + list(self.radices) + pad
-                                   + self._tw_off + pad + self._root_off + pad, np.int32)
+                                   + self._tw_off + pad + self._root_off + pad
+                                   + [self.route] + tail, np.int32)
             self.header_ptr = self.header.ctypes.data
         # every tensor of the plan is a view of one buffer: one copy to the device
         parts = {"table": table.view(np.float32), "window": window[:self.support],
@@ -129,6 +154,28 @@ class StftPlan:
         self.post_off = len(stages)
         post = np.exp(-2j * np.pi * np.arange(half + 1) / self.n_fft).astype(np.complex64)
         return np.concatenate([stages, post])
+
+    def _chirp_tables(self) -> np.ndarray:
+        """The stages of M, the chirp and the two filters' spectra (float64,
+        stored as complex64); sets their offsets and the padding shift."""
+        n, M, S, F_ = self.n_fft, self.M, self.support, self.n_bins
+        self.pad_shift = pad_shift(M)
+        self.post_off = 0
+        stages, self._tw_off, self._root_off = stage_tables(self.radices)
+        k = np.arange(max(S, F_), dtype=np.int64)
+        chirp = np.exp(-1j * np.pi * ((k * k) % (2 * n)) / n)      # k^2 reduced exactly
+
+        def filt(lo, hi):          # conj(w_l) at l mod M for the lags -lo < l < hi
+            b = np.zeros(M, np.complex128)
+            lags = np.arange(-lo + 1, hi, dtype=np.int64)
+            b[lags % M] = np.exp(1j * np.pi * ((lags * lags) % (2 * n)) / n)
+            return np.fft.fft(b) / M
+
+        self.chirp_off = len(stages)
+        self.ba_off = self.chirp_off + len(chirp)
+        self.bs_off = self.ba_off + M
+        return np.concatenate([stages, chirp.astype(np.complex64),
+                               filt(S, F_).astype(np.complex64), filt(F_, S).astype(np.complex64)])
 
 
 # ---------------------------------------------------------------------------
@@ -168,7 +215,7 @@ def _check(t: torch.Tensor, what: str) -> None:
 def _check_plan(plan: StftPlan, device) -> None:
     if plan.radices is None:
         raise ValueError(f"stft: n_fft={plan.n_fft} has no plan for the kernels "
-                         f"(n_fft/2 must factor into 2, 3, 5 and one prime up to 31)")
+                         f"(n_fft must be from 2 to {MAX_N_FFT})")
     if plan.table.device != device:
         raise ValueError(f"stft: the plan lies on {plan.table.device}, the input on {device}")
 
@@ -279,7 +326,7 @@ stft_synthesis.by_n_fft = {}
 class STFT:
     """An STFT geometry (n_fft, hop, window, pad mode) with its plan on
     ``device``; ``stft`` and ``istft`` follow torch.stft / torch.istft.  On
-    any device but the CPU a geometry the kernels cannot plan raises."""
+    any device but the CPU an n_fft outside 2..MAX_N_FFT raises."""
 
     def __init__(self, n_fft: int, hop_length: int, window: np.ndarray, *,
                  pad_mode: str = "reflect", device=None):
@@ -291,8 +338,9 @@ class STFT:
         self.plan = StftPlan(n_fft, hop_length, window, self.device)
         if self.device.type != "cpu" and self.plan.radices is None:
             raise ValueError(f"STFT: no FFT plan for n_fft={n_fft} on {self.device} "
-                             f"(n_fft must be even and n_fft/2 <= {MAX_HALF} must factor "
-                             f"into 2, 3, 5 and one prime up to 31)")
+                             f"(the kernels take n_fft from 2 to {MAX_N_FFT}: the chirp "
+                             f"route's convolution of 1.5 n_fft points must fit in shared "
+                             f"memory)")
         self.n_bins = self.plan.n_bins
         self.taps = self.plan.taps
         self._wsq = window.astype(np.float64) ** 2

@@ -17,8 +17,10 @@ Phases, each printing one line:
    FFT-route plain versions; K4 at the loss's and the RIR regulariser's
    shape and in its three reductions; K5 at the shipped Nf and at Nf = 99,
    one launch a direction with no other kernel inside, its errors beside a
-   float64 chain's, and the refusal of a row length it cannot plan), forward
-   and backward, against its
+   float64 chain's; K6 and K7 one launch a call, K6 also at Nf = 99, 1039
+   and 2500 and at each direction's cap, one above which raises), forward
+   and backward,
+   against its
    plain PyTorch version on the same inputs, with the stated tolerance, and
    timed beside its plain version and a PyTorch library call where one
    computes the same function (the yardstick; the port never calls it).
@@ -26,7 +28,12 @@ Phases, each printing one line:
    out of the profiler's tables by its kernel's name), so that inputs come
    from device memory as on the main path; K2, K3 and K4 are also timed
    warm (back to back) beside it.  Device us per launch come from the
-   profiler;
+   profiler.  Then the lengths the packed K2 and the direct K5 do not take
+   (K2's chirp route at n_fft 511, 154, 74, 222 and 8191; K5 at Nf = 130,
+   250 and 512 and on its chirp route), each one kernel a call with no
+   library FFT, a length above each cap refused, and the shipped
+   geometries' outputs held bit for bit to commit d09e59e's kernels
+   (digests);
 4. the main path, through the tester: a paired test set (the 8 in-repo clean
    utterances of 65536 samples, 8 RIRs made from a seed) is written under
    chiprun_out/, and ``Tester.do_test()`` runs blind BUDDy dereverberation
@@ -38,7 +45,8 @@ Phases, each printing one line:
    then one more run under torch.profiler:
    device time of each of the port's kernels and of the rest, the count of
    kernel launches, and the device's idle share (the per-kernel table goes
-   to chiprun_out/);
+   to chiprun_out/); then the WPE warm init alone, its device time split
+   into K7, K2 and the matmuls;
 5. the tester's other paths: informed dereverberation (serial, time-domain
    RIR operator, 2 items) and unconditional sampling (2 samples of 65536)
    at full width with T=2; one item of 196608 samples through the chunked
@@ -63,6 +71,7 @@ import time
 REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 PEAK_F32_FLOPS = 67e12          # H100 SXM float32 outside the tensor cores
+PEAK_F64_FLOPS = 67e12          # H100 SXM float64 through the tensor cores (DMMA; 34e12 outside)
 N_STEPS = 4                     # diffusion steps of the main-path run (T=201 in the tester)
 OUT_DIR = os.path.join(REPO, "chiprun_out")
 TINY_CKPT = os.path.join(REPO, "tests", "goldens", "torch_tiny.ckpt.npz")
@@ -139,9 +148,20 @@ def cuda_ms(fn, reps: int = 20, repeats: int = 5, warmup: int = 3, cold: bool = 
     return sorted(means)[len(means) // 2]
 
 
-def bound_ms(n_bytes: float, n_flops: float):
-    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_flops / PEAK_F32_FLOPS
+def bound_ms(n_bytes: float, n_flops: float, peak_flops: float = PEAK_F32_FLOPS):
+    """The least time for the work: the bytes at the memory's rate or the
+    operations at the peak of their type (float32 unless ``peak_flops`` says
+    otherwise), whichever is longer, in ms, and which of the two it is."""
+    t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_flops / peak_flops
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def _try(fn):
+    """fn()'s result, or the exception it raised."""
+    try:
+        return fn()
+    except Exception as e:  # noqa: BLE001 -- returned to the caller, which checks its type
+        return e
 
 
 def max_err(a, b) -> float:
@@ -653,8 +673,8 @@ def fused_kernel_checks(dev):
     # (float32 FFTs of 25856 points on both sides, through log and exp at phases
     # of tens of radians), with both sides' error against a float64 chain
     # printed beside; bit-identical between two calls; at the shipped Nf = 100
-    # (L = 128 x 101) and at Nf = 99 (L = 12800 = 128 x 100, another plan); a
-    # row length with no plan raises
+    # (L = 128 x 101) and at Nf = 99 (L = 12800 = 128 x 100, another plan);
+    # the lengths the direct plans alone cannot take are in new_lengths()
     k5_log = {}
     for Nf in (100, 99):
         L = op.hop_length * (Nf + 1)
@@ -712,17 +732,10 @@ def fused_kernel_checks(dev):
             entries[f"minphase_{what}"] = dict(
                 err=err, tol=tol, times=times, shape=[B, L], bound=bound_ms(nbytes, ops),
                 extra={"device_us": k5_us[what][0], "device_us_warm": k5_us[what][1]})
-    try:
-        K5._launch_forward(rand(B, op.hop_length * 131))
-    except ValueError as e:
-        refused = str(e)
-    else:
-        raise AssertionError("minimum_phase: Nf = 130 (L = 128 x 131) has no plan but ran")
     log(f"kernel K5 minimum phase (one cluster launch a direction, FFTs inside): fwd/bwd match "
         f"the plain version at h [8, L], bit-identical between two calls, one launch a call and "
-        f"no other kernel; Nf = 130 refused ({refused}); errors, tolerances and both sides "
-        f"against float64: " + json.dumps(k5_log) + "; device us per launch cold / warm: "
-        + json.dumps(k5_us))
+        f"no other kernel; errors, tolerances and both sides against float64: "
+        + json.dumps(k5_log) + "; device us per launch cold / warm: " + json.dumps(k5_us))
 
     # --- K6 filter design + phasor at the operator's parameters ---------------------------
     params, _ = op.reset_batched(B, generator=torch.Generator(device=dev).manual_seed(2))
@@ -737,6 +750,8 @@ def fused_kernel_checks(dev):
     e_df = max_err(torch.view_as_real(Hk), torch.view_as_real(Hp))
     t_df = 1e-4 * float(Hp.abs().max())
     check("filter_design fwd", e_df, t_df)
+    if not torch.equal(Hk, K6.filter_design(decay, weights, phases, geom)):
+        raise AssertionError("filter_design fwd differs between two runs")
     leaves = [t.detach().requires_grad_(True) for t in (decay, weights, phases)]
     Hp_graph = K6.filter_design_plain(*leaves, geom)
     auto = torch.autograd.grad(Hp_graph, leaves, gH, retain_graph=True)
@@ -750,20 +765,105 @@ def fused_kernel_checks(dev):
         e_db = max(e_db, e)
         if not torch.equal(a, r):
             raise AssertionError(f"filter_design bwd {what} differs between two runs")
+    # one launch a call each way and no other kernel; device us cold (after
+    # an L2 flush) and warm (back to back), and the wrapper's CUDA-event ms
+    k6_calls = {"design_fwd_kernel": lambda: K6.filter_design(decay, weights, phases, geom),
+                "design_bwd_kernel": lambda: K6.filter_design_backward(decay, weights, phases, gH,
+                                                                       geom)}
+    k6_us = {}
     with torch.no_grad():
-        t_f = (cuda_ms(lambda: K6.filter_design(decay, weights, phases, geom)),
+        for kname, call in k6_calls.items():
+            k6_us[kname] = (one_launch(call, kname, f"filter_design {kname}"),
+                            device_us_per_launch(call, [kname], cold=False)[kname],
+                            cuda_ms(call, cold=False))
+        t_f = (cuda_ms(k6_calls["design_fwd_kernel"]),
                cuda_ms(lambda: K6.filter_design_plain(decay, weights, phases, geom)), None)
-    t_b = (cuda_ms(lambda: K6.filter_design_backward(decay, weights, phases, gH, geom)),
+    t_b = (cuda_ms(k6_calls["design_bwd_kernel"]),
            cuda_ms(lambda: torch.autograd.grad(Hp_graph, leaves, gH, retain_graph=True)), None)
     n = phases.numel()
     small = 4 * (2 * decay.numel() + geom.dpc.numel())
+    extra = lambda k: {"kernel": k, "device_us": k6_us[k][0], "device_us_warm": k6_us[k][1],
+                       "ms_warm": k6_us[k][2]}
     entries["filter_design_fwd"] = dict(err=e_df, tol=t_df, times=t_f, shape=list(phases.shape),
-                                        bound=bound_ms(12 * n + small, 120.0 * n))
+                                        bound=bound_ms(12 * n + small, 120.0 * n),
+                                        extra=extra("design_fwd_kernel"))
     entries["filter_design_bwd"] = dict(err=e_db, tol=1e-3, times=t_b, shape=list(phases.shape),
-                                        bound=bound_ms(16 * n + small, 160.0 * n))
+                                        bound=bound_ms(16 * n + small, 160.0 * n),
+                                        extra=extra("design_bwd_kernel"))
+    # and at other operator shapes, same tolerances: Nf = 99 (F Nf odd: no 16-byte path) and
+    # B = 3 (another row schedule); Nf = 1039 at hop 64, the longest RIR K5 runs there, at one
+    # wave; then, on the operator's breakpoints with OLA factors of one and no direct-path
+    # correction, Nf = 2500 (the backward's R halved) and each direction at its cap (the
+    # largest Nf its row schedule fits, one or two rows a CTA), and one above it, which raises
+    def k6_case(what, geom_, leaves_, bwd=True):
+        Hk_, Hp_ = K6.filter_design(*leaves_, geom_), K6.filter_design_plain(*leaves_, geom_)
+        check(f"filter_design fwd {what}", max_err(torch.view_as_real(Hk_),
+                                                   torch.view_as_real(Hp_)),
+              1e-4 * float(Hp_.abs().max()))
+        del Hk_, Hp_
+        if not bwd:
+            return
+        gk = crand(*leaves_[2].shape)
+        lv = [t.detach().requires_grad_(True) for t in leaves_]
+        auto_ = torch.autograd.grad(K6.filter_design_plain(*lv, geom_), lv, gk)
+        kern_ = K6.filter_design_backward(*leaves_, gk, geom_)
+        for name, a_, b_ in zip(("ddecay", "dweights", "dphases"), kern_, auto_):
+            check(f"filter_design bwd {name} {what}", rel(a_, b_), 1e-3)
+        if not all(torch.equal(u, v) for u, v in zip(
+                kern_, K6.filter_design_backward(*leaves_, gk, geom_))):
+            raise AssertionError(f"filter_design bwd {what} differs between two runs")
+
+    k6_shapes = []
+    for Nf_, hop_, B_ in ((99, 128, 3), (1039, 64, 8)):
+        args_ = compose("conf_VCTK.yaml", ["tester=blind_dereverberation_BUDDy",
+                                           f"tester.informed_dereverberation.op_hp.Nf={Nf_}",
+                                           f"tester.informed_dereverberation.op_hp.hop={hop_}"])
+        op_ = BlindSubbandFiltering(args_["tester"]["informed_dereverberation"]["op_hp"],
+                                    sample_rate=16000, device=dev)
+        p_, _ = op_.reset_batched(B_, generator=torch.Generator(device=dev).manual_seed(3))
+        geom_ = op_._design_geometry
+        k6_case(f"Nf={Nf_} hop={hop_} B={B_}", geom_, [p_["decay"], p_["weights"], p_["phases"]])
+        k6_shapes.append([B_, geom.dpc.shape[0], Nf_, list(geom_.schedules.values())])
+
+    def bare(Nf_):
+        """The operator's breakpoints at Nf_ columns, with its decays and weights."""
+        gm = K6.FilterDesignGeometry(op.freqs, op.EQ_freqs, np.ones(Nf_, np.float32),
+                                     np.zeros((geom.dpc.shape[0], Nf_), np.float32),
+                                     geom.fix_extremes, dev)
+        return gm, [decay, weights, 2 * np.pi * torch.rand((B, geom.dpc.shape[0], Nf_),
+                                                           generator=g, device=dev) - np.pi]
+
+    gm, lv_ = bare(2500)
+    k6_case(f"Nf=2500 B={B}", gm, lv_)
+    k6_shapes.append([B, geom.dpc.shape[0], 2500, list(gm.schedules.values())])
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    caps = {}
+    for bwd in (False, True):
+        fits = lambda n: not isinstance(_try(lambda: K6.schedule(geom.j_host, n, 1, decay.shape[2],
+                                                                  B, sms, bwd)), ValueError)
+        lo, hi = 1, 1 << 16
+        while hi - lo > 1:
+            lo, hi = ((lo + hi) // 2, hi) if fits((lo + hi) // 2) else (lo, (lo + hi) // 2)
+        caps["bwd" if bwd else "fwd"] = lo
+        for Nf_ in (lo, lo + 1):
+            gm, lv_ = bare(Nf_)
+            if Nf_ == lo:
+                k6_case(f"Nf={Nf_} B={B} (the {'backward' if bwd else 'forward'}'s cap)", gm, lv_,
+                        bwd)
+                continue
+            call = K6.filter_design_backward if bwd else K6.filter_design
+            extra_arg = [crand(*lv_[2].shape)] if bwd else []
+            err_ = _try(lambda: call(*lv_, *extra_arg, gm))
+            if not (isinstance(err_, ValueError) and "above the cap" in str(err_)):
+                raise AssertionError(f"filter_design {'bwd' if bwd else 'fwd'} Nf={Nf_}: above "
+                                     f"the cap but gave {type(err_).__name__}")
+        del gm, lv_
     log(f"kernel K6 filter design: fwd/bwd match the plain version at params "
-        f"{list(decay.shape)}, phases {list(phases.shape)}; the backward is bit-identical "
-        f"between two runs")
+        f"{list(decay.shape)}, phases {list(phases.shape)} and at [B, F, Nf, [[R, nb, qmax] "
+        f"fwd, bwd]] {k6_shapes}, and at the caps Nf = {caps}, above which each raises; "
+        f"bit-identical between two runs, one "
+        f"launch a call each way; device us cold / warm and warm ms a call: " + json.dumps(k6_us)
+        + f"; ms cold kernel/plain: fwd {t_f[0]:.4f}/{t_f[1]:.4f}, bwd {t_b[0]:.4f}/{t_b[1]:.4f}")
 
     # --- K7 WPE solve: the systems of the warm init, 8 x 257 bins of 50 x 50 ---------------
     ys = torch.from_numpy(load_wavs("degraded", 8, 65536)).to(dev)[:, 0]
@@ -819,21 +919,205 @@ def fused_kernel_checks(dev):
             lambda: K7.wpe_solve_plain(R, P), reps=5),
             cuda_ms(lambda: torch.linalg.solve(Ald, P), reps=5))
         t_chol = cuda_ms(chol, reps=5)
+        k7_us = (one_launch(lambda: K7.wpe_solve(R, P), "wpe_solve_kernel", "wpe_solve"),
+                 device_us_per_launch(lambda: K7.wpe_solve(R, P), ["wpe_solve_kernel"],
+                                      cold=False)["wpe_solve_kernel"])
     nsys = P.numel() // taps
-    # library_ms is the faster of the two library routes; both stand beside it by name
+    # library_ms is the faster of the two library routes; both stand beside it by name.  The
+    # bound counts the LU's 8 n^3 / 3 operations a complex system in float64, the kernel's
+    # arithmetic, against the card's float64 peak (the tensor cores'), and the bytes
     entries["wpe_solve"] = dict(err=d_k, tol=d_p, shape=[nsys, taps, taps],
                                 times=(t_solve[0], t_solve[1], min(t_solve[2], t_chol)),
                                 bound=bound_ms(8 * (R.numel() + 2 * P.numel()),
-                                               nsys * 8.0 * taps ** 3 / 3),
+                                               nsys * 8.0 * taps ** 3 / 3, PEAK_F64_FLOPS),
                                 extra={"library_linalg_solve_ms": t_solve[2],
-                                       "library_cholesky_ms": t_chol})
+                                       "library_cholesky_ms": t_chol, "device_us": k7_us[0],
+                                       "device_us_warm": k7_us[1]})
     log(f"kernel K7 WPE solve (LU with partial pivoting in float64): {nsys} systems of "
         f"{taps}x{taps}; residual |(R+load I)G-P|/|P| kernel {r_k:.3e}, plain complex64 "
         f"{r_p:.3e}; dereverberated waveform after one iteration against the complex128 solve, "
         f"max abs / peak: kernel {d_k / peak:.3e}, plain {d_p / peak:.3e}; after five iterations "
         f"against WPE in complex128 throughout: kernel {d5_k:.3e}, plain {d5_p:.3e}; ms kernel {t_solve[0]:.4f}, "
-        f"torch.linalg.solve {t_solve[2]:.4f}, cholesky_ex + cholesky_solve {t_chol:.4f}")
+        f"torch.linalg.solve {t_solve[2]:.4f}, cholesky_ex + cholesky_solve {t_chol:.4f}; device "
+        f"us a launch cold {k7_us[0]:.1f}, warm {k7_us[1]:.1f}; bound ms "
+        f"{entries['wpe_solve']['bound'][0]:.4f} ({entries['wpe_solve']['bound'][1]}, float64)")
     return entries
+
+
+
+# ---------------------------------------------------------------------------
+# phase 3 (continued): lengths the packed K2 and the direct K5 do not take,
+# and the shipped geometries' bits
+# ---------------------------------------------------------------------------
+# K2's chirp route: n_fft -> hop.  511 (odd) and 154 (= 2 7 11, two primes
+# above 5), 74 and 222 (a prime above 31), and 8191, the longest odd n
+K2_CHIRP = {511: 128, 154: 128, 74: 16, 222: 64, 8191: 2048}
+# K5 rows: Nf = 130, 250 and 512 at hop 128 (direct DFTs of 131, 251 and 513
+# points), and the chirp route: a prime (101), 2 x 257, 2 x 7 x 11 x 13, and
+# the prime 65521 near the cap
+K5_LENGTHS = (128 * 131, 128 * 251, 128 * 513, 101, 2 * 257, 2 * 7 * 11 * 13, 65521)
+# sha256 (first 16 hex digits) of the shipped geometries' outputs on the
+# inputs of shipped_digests(), from commit d09e59e's kernels (printed by
+# ``chip_compare.py`` for a checkout of that commit, NVIDIA H100 80GB HBM3):
+# the main path's bits must not move
+PARENT_DIGESTS = {
+    "stft_analysis operator": "31a15854817c006c", "stft_synthesis operator": "7b30b785c4ba9f1f",
+    "stft_analysis model": "bcef482e4fbaf620", "stft_synthesis model": "bfee69b15bd2993e",
+    "stft_analysis wpe": "2625e31384dbeabd", "stft_synthesis wpe": "e8d4f318b2369823",
+    "stft_analysis cons": "f3f62e4a281e4b17", "stft_synthesis cons": "18ef8308d528f42d",
+    "minphase_fwd Nf=100": "cf1a89e4560ef893", "minphase_bwd Nf=100": "396d61882134cd77"}
+
+
+def one_launch(call, kname: str, what: str) -> float:
+    """Profiles 20 calls (cold) and requires exactly one launch of ``kname``
+    a call and no other kernel (no library FFT); returns its device us.  A
+    window that records fewer launches than calls is taken again, up to
+    twice (the profiler now and then drops part of a window's activity)."""
+    for _ in range(3):
+        found = profile_device_us(call)
+        if set(found) - {kname} or found.get(kname, [0, 0])[1] > 20:
+            break
+        if found.get(kname, [0, 0])[1] == 20:
+            return found[kname][0] / 20
+    raise AssertionError(f"{what}: one call runs {found}, not one {kname}")
+
+
+def new_lengths(dev) -> dict:
+    """K2 at the chirp route's lengths and K5 at rows beyond the old 128 x 128 plans,
+    against their plain versions (torch.fft) on the card: 1e-4 of the
+    peak forward (K2 both ways, K5's forward), 5e-4 of the peak for K5's
+    backward (as at Nf = 100); bit-identical between two calls; one kernel
+    a call and no other; a length above each cap raises ValueError."""
+    import numpy as np
+    import torch
+    from buddy_tpu_torch.ops import minphase as K5, stft as K2
+    from buddy_tpu_torch.ops.fft_plan import MINPHASE_MAX_L, MinPhasePlan
+    from buddy_tpu_torch.ops.stft import MAX_N_FFT, STFT, hann_window
+    rng = np.random.default_rng(21)
+    on = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    k2, k5 = {}, {}
+    for n_fft, hop in K2_CHIRP.items():
+        geom = STFT(n_fft, hop, hann_window(n_fft), pad_mode="constant", device=dev)
+        plan = geom.plan
+        if plan.route != K2.CHIRP:
+            raise AssertionError(f"stft n_fft={n_fft}: route {plan.route}, not the chirp route")
+        blocks, T = geom.frame_blocks(on(rng.standard_normal((8, 16384))))
+        spec_k = K2.stft_analysis(blocks, plan, T)
+        spec_p = K2.analysis_plain(blocks, plan, T, plan.ones).contiguous()
+        err_a = max_err(torch.view_as_real(spec_k), torch.view_as_real(spec_p))
+        check(f"stft_analysis chirp n_fft={n_fft}", err_a, 1e-4 * float(spec_p.abs().max()))
+        y_k = K2.stft_synthesis(spec_p, plan)
+        y_p = K2.synthesis_plain(spec_p, plan, plan.istft_weights)
+        err_s = max_err(y_k, y_p)
+        check(f"stft_synthesis chirp n_fft={n_fft}", err_s, 1e-4 * float(y_p.abs().max()))
+        if not (torch.equal(spec_k, K2.stft_analysis(blocks, plan, T))
+                and torch.equal(y_k, K2.stft_synthesis(spec_p, plan))):
+            raise AssertionError(f"stft chirp n_fft={n_fft}: two calls differ")
+        g = torch.complex(on(rng.standard_normal(spec_p.shape)), on(rng.standard_normal(spec_p.shape)))
+        bk, bp = blocks.detach().requires_grad_(True), blocks.detach().requires_grad_(True)
+        K2.stft_analysis(bk, plan, T).backward(g)
+        K2.analysis_plain(bp, plan, T, plan.ones).backward(g)
+        err_ab = max_err(bk.grad, bp.grad)
+        check(f"stft_analysis bwd chirp n_fft={n_fft}", err_ab, 1e-4 * float(bp.grad.abs().max()))
+        with torch.no_grad():
+            us = (one_launch(lambda: K2.stft_analysis(blocks, plan, T),
+                             "stft_chirp_analysis_kernel", f"stft_analysis n_fft={n_fft}"),
+                  one_launch(lambda: K2.stft_synthesis(spec_p, plan),
+                             "stft_chirp_synthesis_kernel", f"stft_synthesis n_fft={n_fft}"))
+        k2[n_fft] = {"hop": hop, "M": plan.M, "frames": T, "err": [err_a, err_s, err_ab],
+                     "device_us_cold": [round(u, 1) for u in us]}
+    try:
+        STFT(MAX_N_FFT + 1, 2048, hann_window(MAX_N_FFT + 1), device=dev)
+    except ValueError as e:
+        k2_cap = str(e)
+    else:
+        raise AssertionError(f"STFT: n_fft={MAX_N_FFT + 1} is above the cap but planned")
+    log(f"kernel K2 chirp route (a Bluestein step in shared memory) at n_fft -> hop "
+        f"{K2_CHIRP}: analysis, synthesis and the analysis's backward match the plain version "
+        f"(1e-4 of the peak), bit-identical between two calls, one kernel a call and no library "
+        f"FFT; n_fft={MAX_N_FFT + 1} refused ({k2_cap}): " + json.dumps(k2))
+
+    for L in K5_LENGTHS:
+        plan = MinPhasePlan(L, dev)
+        h = on(np.exp(-np.arange(L) / (L / 6.0)) * rng.standard_normal((8, L)))
+        h[:, 0] = 2.0
+        gy = on(rng.standard_normal((8, L)))
+        yk, Hs, phs = K5._launch_forward(h)
+        yp = K5.minimum_phase_plain(h)
+        e_f, t_f = max_err(yk, yp), 1e-4 * float(yp.abs().max())
+        check(f"minimum_phase fwd L={L}", e_f, t_f)
+        dk = K5.minimum_phase_backward(Hs, phs, gy)
+        dp = K5.minimum_phase_backward_plain(h, gy)
+        e_b, t_b = max_err(dk, dp), 5e-4 * float(dp.abs().max())
+        check(f"minimum_phase bwd L={L}", e_b, t_b)
+        if not (torch.equal(yk, K5._launch_forward(h)[0])
+                and torch.equal(dk, K5.minimum_phase_backward(Hs, phs, gy))):
+            raise AssertionError(f"minimum_phase L={L}: two calls differ")
+        with torch.no_grad():
+            us = (one_launch(lambda: K5._launch_forward(h), "minphase_fwd_kernel",
+                             f"minimum_phase fwd L={L}"),
+                  one_launch(lambda: K5.minimum_phase_backward(Hs, phs, gy), "minphase_bwd_kernel",
+                             f"minimum_phase bwd L={L}"))
+        k5[L] = {"route": ["direct", "chirp"][plan.route], "N1 x N2": [plan.N1, plan.N2],
+                 "err": [e_f, e_b], "tol": [t_f, t_b], "device_us_cold": [round(u, 1) for u in us]}
+    try:
+        K5._launch_forward(on(np.ones((1, MINPHASE_MAX_L + 1))))
+    except ValueError as e:
+        k5_cap = str(e)
+    else:
+        raise AssertionError(f"minimum_phase: L={MINPHASE_MAX_L + 1} is above the cap but ran")
+    log(f"kernel K5 at rows beyond the old 128 x 128 plans (Nf = 130, 250, 512 at hop 128; the "
+        f"chirp route): "
+        f"fwd/bwd match the plain version (1e-4 / 5e-4 of the peak), bit-identical between two "
+        f"calls, one kernel a call; L={MINPHASE_MAX_L + 1} refused ({k5_cap}): " + json.dumps(k5))
+    return {"stft": k2, "minphase": k5}
+
+
+def shipped_digests(dev) -> dict:
+    """sha256 (16 hex digits) of K2's outputs at the four shipped geometries
+    and of K5's at Nf = 100, forward and backward, on inputs made with numpy
+    from a seed: a record of the main path's bits that another tree's
+    kernels can be held to."""
+    import hashlib
+    import numpy as np
+    import torch
+    from buddy_tpu_torch.ops import minphase as K5, stft as K2
+    from buddy_tpu_torch.ops.stft import STFT, hann_window
+    rng = np.random.default_rng(31)
+    on = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+    digest = lambda t: hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+    op_window = np.pad(hann_window(512), (0, 512))
+    out = {}
+    with torch.no_grad():
+        for gname, (n_fft, window, mode, length) in {
+                "operator": (1024, op_window, "constant", 65536 + 512),
+                "model": (510, hann_window(510), "reflect", 65536),
+                "wpe": (512, hann_window(512), "constant", 65536),
+                "cons": (1024, op_window, "constant", 12928)}.items():
+            geom = STFT(n_fft, 128, window, pad_mode=mode, device=dev)
+            blocks, T = geom.frame_blocks(on(rng.standard_normal((8, length))))
+            spec = K2.stft_analysis(blocks, geom.plan, T)
+            out[f"stft_analysis {gname}"] = digest(torch.view_as_real(spec))
+            out[f"stft_synthesis {gname}"] = digest(K2.stft_synthesis(spec.contiguous(), geom.plan))
+        L = 128 * 101
+        h = on(np.exp(-np.arange(L) / 2000.0) * rng.standard_normal((8, L)))
+        h[:, 0] = 2.0
+        y, Hs, phs = K5._launch_forward(h)
+        out["minphase_fwd Nf=100"] = digest(torch.cat([y.flatten(), torch.view_as_real(Hs).flatten(),
+                                                       phs.flatten()]))
+        out["minphase_bwd Nf=100"] = digest(K5.minimum_phase_backward(
+            Hs, phs, on(rng.standard_normal((8, L)))))
+    return out
+
+
+def check_digests(dev) -> None:
+    """The shipped geometries' outputs against PARENT_DIGESTS, bit for bit."""
+    ours = shipped_digests(dev)
+    differ = {k: (v, PARENT_DIGESTS.get(k)) for k, v in ours.items() if PARENT_DIGESTS.get(k) != v}
+    if differ:
+        raise AssertionError(f"shipped geometries: outputs differ from commit d09e59e's kernels: {differ}")
+    log(f"K2 at the operator, model, WPE and cons geometries and K5 at Nf = 100, fwd and bwd: "
+        f"bit-identical to commit d09e59e's kernels on the same inputs ({len(ours)} digests)")
 
 
 # ---------------------------------------------------------------------------
@@ -918,10 +1202,11 @@ def check_outputs(tester, mode: str, n_items: int, length: int, blind: bool) -> 
 _PORT_KERNELS = (
     "gn_stats_kernel", "gn_apply_kernel", "gn_bwd_stats_kernel", "gn_bwd_apply_kernel",  # K1
     "stft_analysis_kernel", "stft_synthesis_kernel",                                      # K2
+    "stft_chirp_analysis_kernel", "stft_chirp_synthesis_kernel",
     "subband_fft_conv_kernel",                                                            # K3
     "compress_kernel", "compress_bwd_kernel", "comp_loss_fwd_kernel", "comp_loss_bwd_kernel",  # K4
     "minphase_fwd_kernel", "minphase_bwd_kernel",                                         # K5
-    "design_fwd_kernel", "design_bwd_point_kernel", "design_bwd_band_kernel",             # K6
+    "design_fwd_kernel", "design_bwd_kernel",                                             # K6
     "wpe_solve_kernel")                                                                   # K7
 
 
@@ -961,8 +1246,44 @@ def profile_main_path(run, n_steps: int) -> None:
         f"per step: " + json.dumps(per_step))
 
 
-def main_path(dev, wrappers):
-    """Phase 4: ``Tester.do_test()`` in blind mode, one batch of 8, full width."""
+def wpe_warm_init(dev, wcfg) -> None:
+    """The WPE warm init alone at the main path's batch (the 8 degraded
+    utterances of 65536 samples, the tester's taps, delay and iterations):
+    CUDA-event ms a call (cold), and its device time split by the profile
+    into K7, K2, the correlations' matmuls and the rest."""
+    import torch
+    from buddy_tpu_torch.sampling.wpe import wpe_dereverb
+    ys = torch.from_numpy(load_wavs("degraded", 8, 65536)).to(dev)[:, 0]
+    call = lambda: wpe_dereverb(ys, taps=int(wcfg["taps"]), delay=int(wcfg["delay"]),
+                                iterations=int(wcfg["iterations"]))
+    reps = 3
+    with torch.no_grad():
+        ms = cuda_ms(call, reps=5)
+        found = profile_device_us(call, reps=reps)
+    split = {"K7 wpe_solve_kernel": [0.0, 0], "K2 stft kernels": [0.0, 0],
+             "matmuls (cuBLAS)": [0.0, 0], "other": [0.0, 0]}
+    for name, (us, count) in found.items():
+        low = name.lower()
+        key = ("K7 wpe_solve_kernel" if name == "wpe_solve_kernel" else
+               "K2 stft kernels" if name.startswith("stft_") else
+               "matmuls (cuBLAS)" if any(w in low for w in ("gemm", "gemv", "cutlass", "xmma"))
+               else "other")
+        split[key][0] += us / reps / 1e3
+        split[key][1] += count // reps
+    device = sum(v[0] for v in split.values())
+    log(f"WPE warm init alone (B=8 x 65536, taps {wcfg['taps']}, delay {wcfg['delay']}, "
+        f"{wcfg['iterations']} iterations): {ms:.3f} ms a call (CUDA events, cold), device "
+        f"{device:.3f} ms, by part [ms, launches]: "
+        + json.dumps({k: [round(v[0], 4), v[1]] for k, v in split.items()}))
+
+
+def blind_tester(dev):
+    """The main path's tester: blind, batched (one batch of 8 x 65536
+    samples), full width, bf16 body, full guidance, 10 operator updates a
+    step, WPE warm init, T = N_STEPS, on a paired test set written under
+    chiprun_out/.  Returns (args, net, tester, sampler_s, run): the sampler
+    call's wall seconds are appended to sampler_s, and run() is one
+    ``do_test()`` with the device synchronised."""
     import torch
     data = write_paired_set(os.path.join(OUT_DIR, "smoke_data"),
                             load_wavs("clean", 8, 65536)[:, 0], seed=11)
@@ -995,6 +1316,13 @@ def main_path(dev, wrappers):
         tester.do_test()
         torch.cuda.synchronize()
 
+    return args, net, tester, sampler_s, run
+
+
+def main_path(dev, wrappers):
+    """Phase 4: ``Tester.do_test()`` in blind mode, one batch of 8, full width."""
+    import torch
+    args, net, tester, sampler_s, run = blind_tester(dev)
     t0 = time.perf_counter()
     run()                                           # cold: Triton/cuDNN first launches
     cold = time.perf_counter() - t0
@@ -1027,6 +1355,7 @@ def main_path(dev, wrappers):
             name: {n: [c, round(c / T, 2)] for n, c in sorted(wrappers[name].by_n_fft.items())}
             for name in ("stft_analysis", "stft_synthesis")}))
     profile_main_path(run, T)
+    wpe_warm_init(dev, args["tester"]["posterior_sampling"]["warm_initialization"]["wpe"])
     return launches, wall
 
 
@@ -1224,7 +1553,19 @@ def main() -> int:
     t0 = time.perf_counter()
     checks = kernel_checks(dev)
     checks.update(fused_kernel_checks(dev))
+    lengths = new_lengths(dev)
+    check_digests(dev)
     log(f"kernel checks done in {time.perf_counter() - t0:.1f} s")
+    checks["stft_analysis"]["extra"]["chirp_route"] = {
+        n: {"device_us": v["device_us_cold"][0], "err": v["err"][0]}
+        for n, v in lengths["stft"].items()}
+    checks["stft_synthesis"]["extra"]["chirp_route"] = {
+        n: {"device_us": v["device_us_cold"][1], "err": v["err"][1]}
+        for n, v in lengths["stft"].items()}
+    for i, what in enumerate(("minphase_fwd", "minphase_bwd")):
+        checks[what]["extra"]["other_lengths"] = {
+            L: {"route": v["route"], "device_us": v["device_us_cold"][i], "err": v["err"][i]}
+            for L, v in lengths["minphase"].items()}
 
     launches, _ = main_path(dev, wrappers)
     other_modes(dev)

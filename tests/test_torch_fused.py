@@ -230,6 +230,166 @@ def test_filter_design_forward_backward(fix_extremes, n_exp):
             assert rel_err(e[b].numpy(), np.asarray(j)) < 3e-4
 
 
+def _filter_design_schedule(geom, decay, weights, phases, gH, R):
+    """K6's CUDA schedule (csrc/filter_design.cu) in float64: CTAs of R
+    consecutive frequency rows of one b; each forms log(full + 1e-6) of the
+    breakpoints its rows touch, computes H, dL/dphases and dL/dI of its
+    points, sums dL/dI over its rows into per-breakpoint partial rows (rows
+    with j = q - 1 weigh q by t, rows with j = q by 1 - t, ascending),
+    divides them by full + 1e-6 and reduces them over n into (d weights,
+    d decay) of each (e, k) it touches; the last CTA of b adds those of the
+    CTAs whose rows touch q, in CTA order.  Returns H and (dL/ddecay,
+    dL/dweights, dL/dphases)."""
+    j, t = geom.j.numpy(), geom.t.numpy().astype(np.float64)
+    ola, dpc = geom.ola.numpy().astype(np.float64), geom.dpc.numpy().astype(np.float64)
+    B, E, bands = decay.shape
+    F, Nf = dpc.shape
+    Q, pad = geom.n_eq, 1 if geom.fix_extremes else 0
+    n = np.arange(Nf)
+    decayed = np.exp(decay)[..., None] ** (-n)                          # (B, E, bands, Nf)
+
+    def full_eps(b, q):
+        k = q - pad
+        return (weights[b, :, k, None] * decayed[b, :, k]).sum(0) + 1e-6 if 0 <= k < bands \
+            else np.full(Nf, 1e-6)
+
+    nb = -(-F // R)
+    H = np.zeros((B, F, Nf), complex)
+    g_phases = np.zeros((B, F, Nf))
+    part = np.full((B, nb, Q, 2, E), np.nan)       # breakpoints a CTA does not touch: unwritten
+    for b in range(B):
+        for c in range(nb):
+            f = np.arange(c * R, min(F, c * R + R))
+            q0, nq = j[f[0]], j[f[-1]] + 2 - j[f[0]]
+            lf = np.stack([np.log(full_eps(b, q)) for q in range(q0, q0 + nq)])
+            P = np.exp((1 - t[f, None]) * lf[j[f] - q0] + t[f, None] * lf[j[f] - q0 + 1])
+            A = (P + 1e-6) * ola + dpc[f]
+            cs, sn = np.cos(phases[b, f]), np.sin(phases[b, f])
+            H[b, f] = A * (cs + 1j * sn)
+            g = gH[b, f]
+            g_phases[b, f] = A * (g.imag * cs - g.real * sn)
+            gI = (g.real * cs + g.imag * sn) * ola * P
+            for q in range(q0, q0 + nq):
+                acc = np.zeros(Nf)
+                for rows, wt in ((j[f] == q - 1, t[f]), (j[f] == q, 1 - t[f])):
+                    for i in np.nonzero(rows)[0]:
+                        acc = acc + wt[i] * gI[i]
+                k = q - pad
+                if 0 <= k < bands:
+                    g_full = acc / full_eps(b, q)
+                    part[b, c, q, 0] = (g_full * decayed[b, :, k]).sum(-1)
+                    part[b, c, q, 1] = (g_full * weights[b, :, k, None] * (-n)
+                                        * decayed[b, :, k]).sum(-1)
+    g_decay, g_weights = np.zeros((B, E, bands)), np.zeros((B, E, bands))
+    for b in range(B):
+        for k in range(bands):
+            for c in range(nb):
+                if not np.isnan(part[b, c, k + pad, 0, 0]):
+                    g_weights[b, :, k] += part[b, c, k + pad, 0]
+                    g_decay[b, :, k] += part[b, c, k + pad, 1]
+    return H, (g_decay, g_weights, g_phases)
+
+
+@pytest.mark.parametrize("fix_extremes,n_exp", [(True, 1), (True, 2), (False, 1), (False, 2)])
+@pytest.mark.parametrize("R", [33, 7, 513])
+def test_filter_design_schedule_against_jax(fix_extremes, n_exp, R):
+    """K6's kernel schedule (``_filter_design_schedule``) in float64 at R rows
+    a CTA: 33 (the main path's: 16 CTAs a b on the H100's 132 SMs at B = 8),
+    7 (more CTAs than breakpoints, so most partial rows come from two CTAs)
+    and 513 (one CTA a b), against the JAX operator's ``design_filter`` with
+    its phasor (2e-5 of the peak, as the plain version) and their
+    ``jax.grad`` (3e-4: JAX sums ~51k float32 terms)."""
+    jop, top = _operators(fix_extremes, n_exp)
+    rng = np.random.default_rng(17 + n_exp)
+    B, bands = 2, top.num_bands
+    decay0, w0 = top._init_decay_weights()
+    decay = (decay0[None] * rng.uniform(0.5, 2.0, (B, n_exp, bands))).astype(np.float32)
+    weights = (w0[None] * rng.uniform(0.5, 2.0, (B, n_exp, bands))).astype(np.float32)
+    phases = rng.uniform(-np.pi, np.pi, (B, 513, top.Nf)).astype(np.float32)
+    gH = _cplx(rng, B, 513, top.Nf)
+    geom = top._design_geometry
+    H, grads = _filter_design_schedule(geom, decay.astype(np.float64), weights.astype(np.float64),
+                                       phases.astype(np.float64), gH.astype(np.complex128), R)
+
+    def jH(d, w, p):
+        return jop.design_filter({"decay": d, "weights": w}) * jnp.exp(1j * p)
+
+    for b in range(B):
+        args = [jnp.asarray(a[b]) for a in (decay, weights, phases)]
+        assert rel_err(H[b], np.asarray(jH(*args))) < 2e-5
+        loss = lambda d, w, p: jnp.sum(jnp.real(jH(d, w, p) * jnp.conj(jnp.asarray(gH[b]))))
+        for e, jg in zip(grads, jax.grad(loss, argnums=(0, 1, 2))(*args)):
+            assert rel_err(e[b], np.asarray(jg)) < 3e-4
+
+
+def _geometry_j():
+    """The operator's per-row breakpoint intervals j (F = 513 rows, 27
+    breakpoints with the extremes fixed) and its number of bands."""
+    _, top = _operators(True, 1)
+    return top._design_geometry.j_host, top.num_bands
+
+
+@pytest.mark.parametrize("bwd", [False, True])
+@pytest.mark.parametrize("Nf", [99, 100, 512, 1039])
+def test_filter_design_row_schedule_keeps_one_wave(Nf, bwd):
+    """K6's row schedule (``ops/filter_design.py::schedule``) on the H100
+    (132 SMs) at B = 8: at the main path's Nf and at every Nf up to 1039
+    (the longest RIR K5 runs at hop 64: L = 64 (Nf + 1) <= 66560) a CTA's
+    staged rows fit at one wave, 33 rows a CTA and 16 CTAs a b, and qmax
+    is the most breakpoints the rows of one CTA touch, counted CTA by CTA."""
+    from buddy_tpu_torch.ops.filter_design import SMEM_MAX, schedule, smem_bytes
+    j, bands = _geometry_j()
+    R, nb, qmax = schedule(j, Nf, 1, bands, 8, 132, bwd)
+    assert (R, nb) == (33, 16)
+    assert qmax == max(int(j[c:c + R].max()) + 2 - int(j[c:c + R].min())
+                       for c in range(0, len(j), R))
+    assert 2 <= qmax <= 6
+    assert smem_bytes(len(j), Nf, 1, bands, R, qmax, bwd) <= SMEM_MAX
+
+
+@pytest.mark.parametrize("bwd", [False, True])
+def test_filter_design_row_schedule_cap(bwd):
+    """Where K6's cap lies at the operator's breakpoints (B = 8, 132 SMs):
+    past one wave's shared memory R is halved, down to one row a CTA; the
+    largest Nf that then fits is the cap: 19011 forward (one row a CTA, its
+    two breakpoints' log envelope and the OLA row), 6311 backward (two rows
+    a CTA: the envelope and full + 1e-6 of three breakpoints beside the
+    last CTA's pairs of 257 CTAs), far above any RIR the operator takes.
+    One more raises ValueError naming the cap."""
+    from buddy_tpu_torch.ops.filter_design import SMEM_MAX, schedule, smem_bytes
+    j, bands = _geometry_j()
+    F = len(j)
+
+    def fits(Nf):
+        try:
+            schedule(j, Nf, 1, bands, 8, 132, bwd)
+        except ValueError:
+            return False
+        return True
+
+    lo, hi = 1, 1 << 16
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid)
+    assert lo == (6311 if bwd else 19011)
+    R, nb, qmax = schedule(j, lo, 1, bands, 8, 132, bwd)
+    assert (R, nb, qmax) == ((2, 257, 3) if bwd else (1, F, 2))
+    assert smem_bytes(F, lo, 1, bands, R, qmax, bwd) <= SMEM_MAX
+    with pytest.raises(ValueError, match=f"above the cap of {SMEM_MAX} bytes"):
+        schedule(j, lo + 1, 1, bands, 8, 132, bwd)
+    # between one wave and one row: R is the first of 33, 17, 9, ... whose
+    # CTA's shared memory fits
+    Nf = 2500 if bwd else 12000
+    chain = [33]
+    while chain[-1] > 1:
+        chain.append((chain[-1] + 1) // 2)
+    qm = lambda r: max(int(j[c:c + r].max()) + 2 - int(j[c:c + r].min())
+                       for c in range(0, F, r))
+    first = next(r for r in chain if smem_bytes(F, Nf, 1, bands, r, qm(r), bwd) <= SMEM_MAX)
+    assert 1 < first < 33
+    assert schedule(j, Nf, 1, bands, 8, 132, bwd) == (first, -(-F // first), qm(first))
+
+
 def test_compute_H_batched_and_unbatched_against_jax():
     """``compute_H`` (K6's wrapper, then cons with K5's wrapper) for batched
     and unbatched parameters against the JAX operator (1e-4 of the peak)."""

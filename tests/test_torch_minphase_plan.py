@@ -2,9 +2,11 @@
 
 The CUDA kernels of K5 (``buddy_tpu_torch/csrc/minphase.cu``) run the whole
 minimum-phase chain of a row in one thread-block cluster: every transform
-is a packed complex FFT of L = n/2 points (a four-step FFT, L = N1 x N2:
-N1-point Stockham FFTs of the columns, the twiddles, N2-point direct DFTs
-in the paired form of ``fft.cuh``'s odd-prime butterfly), with a gather
+is a packed complex FFT of L = n/2 points (direct: a four-step FFT, L = N1
+x N2: N1-point Stockham FFTs of the columns, the twiddles, N2-point direct
+DFTs in the paired form of ``fft.cuh``'s odd-prime butterfly; chirp: a
+Bluestein step whose circular convolution of N1 x N2 >= 2 L - 1 points
+runs as two such four-step FFTs), with a gather
 before it that packs the real sequence of n points from the half spectra
 the cluster holds and a pass after it that splits the L + 1 bins and does
 the chain's elementwise work.  ``_forward`` / ``_backward`` below run that
@@ -21,14 +23,20 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from buddy_tpu_torch.ops.fft_plan import (BUTTERFLIES, MAX_STAGES, MINPHASE_CLUSTER,
-                                          MINPHASE_HEADER, MINPHASE_MAX_N1, MINPHASE_MAX_SLOTS,
-                                          MinPhasePlan, cluster_layout, minphase_factors)
+from buddy_tpu_torch.ops.fft_plan import (BUTTERFLIES, MAX_STAGES, MINPHASE_CHIRP,
+                                          MINPHASE_CLUSTER, MINPHASE_DIRECT, MINPHASE_HEADER,
+                                          MINPHASE_MAX_L, MINPHASE_MAX_N1, MINPHASE_MAX_SLOTS,
+                                          MinPhasePlan, cluster_layout, minphase_factors,
+                                          minphase_route)
 
 EPS = 1e-8
 # rows of the main path (L = 128 (Nf + 1), Nf = 100 and 99) and of
-# tests/test_torch_fused.py::test_minimum_phase_forward_backward where they plan
+# tests/test_torch_fused.py::test_minimum_phase_forward_backward (direct plans)
 LENGTHS = [12928, 12800, 64, 33]
+# rows the 128 x 128 plans could not take: a prime (chirp), Nf = 130 (direct, N2 = 131), 2 x 257 and
+# 2 x 7 x 11 x 13 (chirp), Nf = 250 and 512 (direct, N2 = 251 and 513)
+NEW_LENGTHS = [101, 128 * 131, 2 * 257, 7 * 11 * 13 * 2, 128 * 251, 128 * 513]
+HEADER_TOP = 13                       # header fields before the radices
 
 
 def _plan(L):
@@ -60,36 +68,53 @@ def _direct_dft(plan, v):
     """(rows, N1, N2) -> the N2-point DFT along the last axis in the kernel's
     paired form: a_r = v_r + v_{N2-r}, b_r = v_r - v_{N2-r} in place, then for
     q <= N2/2  c = v_0 [+ (-1)^q v_{N2/2}] + sum_r a_r Re w_rq,  s = sum_r b_r
-    Im w_rq (r = 1 .. (N2-1)/2, in order, w from the roots table), out_q =
-    c + i s and out_{N2-q} = c - i s."""
+    Im w_rq (r = 1 .. (N2-1)/2, w from the roots table), out_q = c + i s and
+    out_{N2-q} = c - i s.  The sums over r are matrix products here (the
+    kernel's order of terms does not show at float64)."""
     N2 = plan.N2
     roots = plan.table64[plan.roots_off:plan.roots_off + N2]
     H = (N2 - 1) // 2
     r = np.arange(1, H + 1)
+    q = np.arange(N2 // 2 + 1)
     a, b = v[..., r] + v[..., N2 - r], v[..., r] - v[..., N2 - r]
+    w = roots[np.outer(r, q) % N2]                                   # (H, N2/2 + 1)
+    c = v[..., :1] + a @ w.real
+    if N2 % 2 == 0:
+        c = c + v[..., N2 // 2:N2 // 2 + 1] * (-1.0) ** q
+    s = b @ w.imag
     out = np.empty_like(v)
-    for q in range(N2 // 2 + 1):
-        c = v[..., 0] + (v[..., N2 // 2] * (-1) ** q if N2 % 2 == 0 else 0)
-        s = np.zeros_like(c)
-        for rr in range(H):                          # the kernel's fixed order
-            w = roots[(rr + 1) * q % N2]
-            c = c + a[..., rr] * w.real
-            s = s + b[..., rr] * w.imag
-        out[..., q] = c + 1j * s
-        out[..., (N2 - q) % N2] = c - 1j * s if q else c
+    out[..., (N2 - q) % N2] = c - 1j * s
+    out[..., q] = c + 1j * s
     return out
 
 
 def _four_step(plan, z):
-    """The complex FFT of L points, z (rows, L): column j2 holds the points
-    N2 j1 + j2; its N1-point FFT, twiddled by exp(-2 pi i j2 k1 / L), goes to
-    row k1 (the owner's slot); row k1's N2-point DFT gives bin k1 + N1 k2."""
+    """The complex FFT of N = N1 N2 points, z (rows, N): column j2 holds the
+    points N2 j1 + j2; its N1-point FFT, twiddled by exp(-2 pi i j2 k1 / N),
+    goes to row k1 (the owner's slot); row k1's N2-point DFT gives bin
+    k1 + N1 k2."""
     N1, N2 = plan.N1, plan.N2
     cols = z.reshape(z.shape[0], N1, N2).transpose(0, 2, 1)           # [row, j2, j1]
     A = _column_fft(plan, cols)                                      # [row, j2, k1]
     A = A * plan.table64[plan.tw4_off:plan.tw4_off + N1 * N2].reshape(N2, N1)
     Z = _direct_dft(plan, A.transpose(0, 2, 1))                      # [row, k1, k2]
     return Z.transpose(0, 2, 1).reshape(z.shape[0], N1 * N2)         # bin k1 + N1 k2
+
+
+def _transform(plan, z):
+    """The complex FFT of L points, z (rows, L): direct, the four-step FFT of
+    L; chirp, Z_f = w_f conj(E_f) with E the four-step FFT of conj(A filt)
+    and A that of z_j w_j zero-padded to N (the plan's chirp and filter
+    spectrum, divided by N)."""
+    if plan.route == MINPHASE_DIRECT:
+        return _four_step(plan, z)
+    L, N = plan.L, plan.N1 * plan.N2
+    w = plan.table64[plan.chirp_off:plan.chirp_off + L]
+    filt = plan.table64[plan.filt_off:plan.filt_off + N]
+    a = np.zeros((z.shape[0], N), complex)
+    a[:, :L] = z * w
+    E = _four_step(plan, np.conj(_four_step(plan, a) * filt))
+    return w * np.conj(E[:, :L])
 
 
 def _pack(x_of):
@@ -103,7 +128,7 @@ def _rfft(plan, x_of):
     X_f = (Z_f + conj Z_g)/2 - i e_f (Z_f - conj Z_g)/2, g = L - f."""
     L = plan.L
     j = np.arange(L)
-    Z = _four_step(plan, _pack(lambda o: x_of(2 * j + o)))
+    Z = _transform(plan, _pack(lambda o: x_of(2 * j + o)))
     f = np.arange(L + 1)
     e = plan.table64[plan.post_off:plan.post_off + L + 1]
     a, b = Z[:, f % L], np.conj(Z[:, (L - f) % L])
@@ -119,7 +144,7 @@ def _irfft_half(plan, Y, scale):
     e = plan.table64[plan.post_off:plan.post_off + L]
     a, b = Y[:, f], np.conj(Y[:, L - f])
     U = 0.5 * (a + b) + 0.5j * np.conj(e) * (a - b)
-    u = np.conj(_four_step(plan, np.conj(U))) / L * scale
+    u = np.conj(_transform(plan, np.conj(U))) / L * scale
     y = np.empty((Y.shape[0], 2 * L))
     y[:, 0::2], y[:, 1::2] = u.real, u.imag
     return y[:, :L]
@@ -192,18 +217,71 @@ def _rel(a, b):
                                        (64, (64, 1)), (33, (3, 11)), (16384, (128, 128))])
 def test_factors_plan_the_main_path_and_its_neighbours(L, factors):
     """n/2 = 128 (Nf + 1) at the shipped Nf = 100 is 128 column FFTs' worth
-    of 101-point direct DFTs; Nf = 99 plans 128 x 100."""
+    of 101-point direct DFTs; Nf = 99 plans 128 x 100: the direct route, as
+    before the chirp route existed."""
     assert minphase_factors(L) == factors
+    assert minphase_route(L) == (MINPHASE_DIRECT,) + factors
     assert set(_plan(L).radices) <= set(BUTTERFLIES)
 
 
-@pytest.mark.parametrize("L", [101, 128 * 131, 2 * 257, 7 * 11 * 13 * 2])
+@pytest.mark.parametrize("L", [101, 128 * 131, 2 * 257, 7 * 11 * 13 * 2, 128 * 251, 128 * 513])
 def test_plan_refuses_what_the_kernel_cannot_run(L):
-    """No butterfly-only N1 up to 128 with N2 <= 128: ValueError (the CUDA
-    path raises it before any launch)."""
-    assert minphase_factors(L) is None
-    with pytest.raises(ValueError, match="no plan"):
+    """Every row length that once raised here now plans (the name dates
+    from then): a direct DFT of up to MINPHASE_MAX_N2 points where L has
+    a butterfly factor that leaves one (Nf = 130, 250 and 512 at hop 128),
+    else a Bluestein step of N = 128 x ceil((2L - 1) / 128) points; the
+    schedule runs in float64 against the complex128 chain (1e-9 of the
+    peak) and the JAX package's float32 function and its ``jax.grad`` (2e-5
+    and 2e-4 of the peak)."""
+    from buddy_tpu.ops.minphase import minimum_phase_version as jmin
+    p = _plan(L)
+    route, N1, N2 = minphase_route(L)
+    assert (p.route, p.N1, p.N2) == (route, N1, N2)
+    if route == MINPHASE_DIRECT:
+        assert N1 * N2 == L and N1 == 128
+    else:
+        assert N1 == 128 and N1 * N2 >= 2 * L - 1 > N1 * (N2 - 1)
+    h, g = _inputs(L)
+    y_ref, d_ref = _chain128(h, g)
+    y, H, phi = _forward(p, h.astype(np.float64))
+    d = _backward(p, H, phi, g.astype(np.float64))
+    assert _rel(y, y_ref) < 1e-9 and _rel(d, d_ref) < 1e-9
+    assert not y[-1].any() and not d[-1].any()
+    hj, gj = h[:-1], g[:-1]
+    y, H, phi = _forward(p, hj.astype(np.float64))
+    assert _rel(y, np.asarray(jax.vmap(jmin)(jnp.asarray(hj)))) < 2e-5
+    jg = jax.grad(lambda x: jnp.sum(jax.vmap(jmin)(x) * jnp.asarray(gj)))(jnp.asarray(hj))
+    assert _rel(_backward(p, H, phi, gj.astype(np.float64)), np.asarray(jg)) < 2e-4
+
+
+@pytest.mark.parametrize("L", [0, 1, MINPHASE_MAX_L + 1, 2 * MINPHASE_MAX_L])
+def test_plan_refuses_rows_outside_the_cap(L):
+    """Rows shorter than 2 or longer than MINPHASE_MAX_L raise ValueError,
+    naming the cap (the CUDA path raises it before any launch); the cap
+    holds Nf = 512 at hop 128 and the tester's 65536-sample utterance."""
+    assert MINPHASE_MAX_L >= 128 * 513
+    with pytest.raises(ValueError, match=str(MINPHASE_MAX_L)):
         _plan(L)
+
+
+@pytest.mark.parametrize("L", [2, 3, 7, 11, 17, 100, 127, 1000, 4097, MINPHASE_MAX_L])
+def test_every_length_has_a_route_that_fits(L):
+    """Lengths across the range plan, and each plan's shared memory (the
+    kernel's layout, with the column buffers sharing the rows' space) fits
+    in the 227 KB a CTA can have; the chirp route's convolution holds the
+    linear one (N >= 2L - 1)."""
+    p = _plan(L)
+    FS = (p.N1 - 1) + ((p.N1 - 1) >> p.pad_shift) + 1
+    ncol = -(-p.N2 // MINPHASE_CLUSTER)
+    keep = 2 * ((L // 2 + MINPHASE_CLUSTER) // MINPHASE_CLUSTER) if p.route == MINPHASE_CHIRP \
+        else (p.N2 + 1) * p.slots
+    floats = max(4 * ncol * FS, 4 * p.N2 * p.slots) + 2 * p.N2 + keep
+    assert 4 * floats <= 227 * 1024
+    if p.route == MINPHASE_CHIRP:
+        assert p.N1 * p.N2 >= 2 * L - 1
+        assert p.scratch_floats == 4 * p.N1 * p.N2 + 2 * (L + 1)
+    else:
+        assert p.N1 * p.N2 == L and p.scratch_floats == 4 * (L + 1)
 
 
 @pytest.mark.parametrize("n1", [128, 64, 100, 3, 2])
@@ -232,12 +310,13 @@ def test_header_and_table_layout(L):
     p = _plan(L)
     h = p.header
     assert len(h) == MINPHASE_HEADER
-    assert list(h[:10]) == [L, p.N1, p.N2, len(p.radices), p.pad_shift, MINPHASE_CLUSTER,
-                            p.slots, p.tw4_off, p.roots_off, p.post_off]
+    assert list(h[:HEADER_TOP]) == [L, p.N1, p.N2, len(p.radices), p.pad_shift,
+                                    MINPHASE_CLUSTER, p.slots, p.tw4_off, p.roots_off,
+                                    p.post_off, p.route, p.chirp_off, p.filt_off]
     S = len(p.radices)
-    assert list(h[10:10 + S]) == p.radices
-    assert list(h[10 + MAX_STAGES:10 + MAX_STAGES + S]) == p.tw_off
-    o = 10 + 3 * MAX_STAGES
+    assert list(h[HEADER_TOP:HEADER_TOP + S]) == p.radices
+    assert list(h[HEADER_TOP + MAX_STAGES:HEADER_TOP + MAX_STAGES + S]) == p.tw_off
+    o = HEADER_TOP + 3 * MAX_STAGES
     assert list(h[o:o + p.N1]) == p.slot
     k1_of = h[o + MINPHASE_MAX_N1:].reshape(MINPHASE_CLUSTER, MINPHASE_MAX_SLOTS)
     for c, ks in enumerate(p.k1_of):
