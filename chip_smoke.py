@@ -18,8 +18,10 @@ Phases, each printing one line:
    shape and in its three reductions; K5 at the shipped Nf and at Nf = 99,
    one launch a direction with no other kernel inside, its errors beside a
    float64 chain's; K6 and K7 one launch a call, K6 also at Nf = 99, 1039
-   and 2500 and at each direction's cap, one above which raises), forward
-   and backward,
+   and 2500 and at each direction's cap, one above which raises; K7 also
+   against the complex128 solve, bit for bit between two calls, and at
+   n = 1, 2, 10, 64, 119, 120, 200, 512 and its cap 1024 on its two routes,
+   n = 1025 refused), forward and backward,
    against its
    plain PyTorch version on the same inputs, with the stated tolerance, and
    timed beside its plain version and a PyTorch library call where one
@@ -879,10 +881,26 @@ def fused_kernel_checks(dev):
     P64 = P.to(torch.complex128)
     resid = lambda G: float(torch.linalg.norm((A64 @ G.to(torch.complex128)[..., None])[..., 0]
                                               - P64) / torch.linalg.norm(P64))
-    Gk, Gp = K7.wpe_solve(R, P), K7.wpe_solve_plain(R, P)
+    c0 = K7.wpe_solve.launches
+    Gk, Gk2, Gp = K7.wpe_solve(R, P), K7.wpe_solve(R, P), K7.wpe_solve_plain(R, P)
+    if K7.wpe_solve.launches - c0 != 2 or not torch.equal(Gk, Gk2):
+        raise AssertionError(f"wpe_solve: {K7.wpe_solve.launches - c0} launches for two calls, "
+                             f"bit-identical {torch.equal(Gk, Gk2)}")
     r_k, r_p = resid(Gk), resid(Gp)
     if not (r_k <= max(r_p, 1e-6)):
         raise AssertionError(f"wpe_solve: residual {r_k:.3e} above the plain version's {r_p:.3e}")
+
+    def solve128(Rm, Pm, diag_rel=1e-6, eps=1e-10):
+        """torch.linalg.solve in complex128 of the same loaded system (the trace
+        summed in float64, as the kernel sums it)."""
+        n = Rm.shape[-1]
+        ld = diag_rel * torch.diagonal(Rm, dim1=-2, dim2=-1).real.double().sum(-1) / n + eps
+        M = Rm.to(torch.complex128) + ld[..., None, None] * torch.eye(n, device=Rm.device)
+        return torch.linalg.solve(M, Pm.to(torch.complex128))
+
+    rel128 = lambda G, G128: float((G.to(torch.complex128) - G128).abs().max() / G128.abs().max())
+    e128 = rel128(Gk, solve128(R, P))
+    check("wpe_solve: max|G - G128| / max|G128| against the complex128 solve", e128, 1e-5)
 
     def dereverb(solve, spec=Y, iterations=1):
         old, wpe.wpe_solve = wpe.wpe_solve, solve
@@ -923,6 +941,43 @@ def fused_kernel_checks(dev):
                  device_us_per_launch(lambda: K7.wpe_solve(R, P), ["wpe_solve_kernel"],
                                       cold=False)["wpe_solve_kernel"])
     nsys = P.numel() // taps
+
+    # every other tap count the JAX package takes, on both routes, against the complex128
+    # solve (1e-5 of the peak, as at n = 50), one launch a call and bit-identical between
+    # two; a few systems each (WPE correlations of a seeded spectrum, 4 n + 16 frames so
+    # that R has full rank); one above the cap raises
+    g = torch.Generator(device=dev).manual_seed(7)
+
+    def wpe_systems(nsys_, n):
+        T = 4 * n + 16
+        Ys = torch.complex(torch.randn(nsys_, T, generator=g, device=dev),
+                           torch.randn(nsys_, T, generator=g, device=dev))
+        Ys = Ys * torch.exp(-torch.arange(T, device=dev) / (T / 4))
+        Yts = wpe._build_y_tilde(Ys, n, delay)
+        Yns = Yts / torch.clamp(torch.abs(Ys) ** 2, min=1e-10)[..., None, :]
+        return ((Yns @ Yts.conj().transpose(-1, -2)).contiguous(),
+                (Yns @ Ys.conj()[..., None])[..., 0].contiguous())
+
+    other_n = {}
+    for n in (1, 2, 10, 64, 119, 120, 200, 512, K7.MAX_N):
+        Rn, Pn = wpe_systems(4, n)
+        c0 = K7.wpe_solve.launches
+        Gn, Gn2 = K7.wpe_solve(Rn, Pn), K7.wpe_solve(Rn, Pn)
+        route = K7.solve_route(n, 4).route
+        if K7.wpe_solve.launches - c0 != 2 or not torch.equal(Gn, Gn2):
+            raise AssertionError(f"wpe_solve n={n} ({route}): {K7.wpe_solve.launches - c0} "
+                                 f"launches for two calls, bit-identical {torch.equal(Gn, Gn2)}")
+        other_n[n] = {"route": route, "err": rel128(Gn, solve128(Rn, Pn))}
+        check(f"wpe_solve n={n} ({route}) against the complex128 solve", other_n[n]["err"], 1e-5)
+    refused = _try(lambda: K7.wpe_solve(*wpe_systems(1, K7.MAX_N + 1)))
+    if not isinstance(refused, ValueError) or f"MAX_N = {K7.MAX_N}" not in str(refused):
+        raise AssertionError(f"wpe_solve n={K7.MAX_N + 1}: {refused!r}, not the cap's ValueError")
+    large = {}
+    with torch.no_grad():
+        for n in (200, 512):
+            Rn, Pn = wpe_systems(8, n)
+            large[n] = {"systems": 8, "device_us": one_launch(
+                lambda: K7.wpe_solve(Rn, Pn), "wpe_solve_large_kernel", f"wpe_solve n={n}")}
     # library_ms is the faster of the two library routes; both stand beside it by name.  The
     # bound counts the LU's 8 n^3 / 3 operations a complex system in float64, the kernel's
     # arithmetic, against the card's float64 peak (the tensor cores'), and the bytes
@@ -932,15 +987,21 @@ def fused_kernel_checks(dev):
                                                nsys * 8.0 * taps ** 3 / 3, PEAK_F64_FLOPS),
                                 extra={"library_linalg_solve_ms": t_solve[2],
                                        "library_cholesky_ms": t_chol, "device_us": k7_us[0],
-                                       "device_us_warm": k7_us[1]})
+                                       "device_us_warm": k7_us[1], "err_vs_complex128": e128,
+                                       "other_n": other_n, "large_route": large})
     log(f"kernel K7 WPE solve (LU with partial pivoting in float64): {nsys} systems of "
         f"{taps}x{taps}; residual |(R+load I)G-P|/|P| kernel {r_k:.3e}, plain complex64 "
-        f"{r_p:.3e}; dereverberated waveform after one iteration against the complex128 solve, "
-        f"max abs / peak: kernel {d_k / peak:.3e}, plain {d_p / peak:.3e}; after five iterations "
-        f"against WPE in complex128 throughout: kernel {d5_k:.3e}, plain {d5_p:.3e}; ms kernel {t_solve[0]:.4f}, "
+        f"{r_p:.3e}; max|G-G128|/max|G128| {e128:.3e} (tolerance 1e-5), bit-identical between "
+        f"two calls, one launch a call; dereverberated waveform after one iteration against "
+        f"the complex128 solve, max abs / peak: kernel {d_k / peak:.3e}, plain {d_p / peak:.3e}; "
+        f"after five iterations against WPE in complex128 throughout: kernel {d5_k:.3e}, "
+        f"plain {d5_p:.3e}; ms kernel {t_solve[0]:.4f}, "
         f"torch.linalg.solve {t_solve[2]:.4f}, cholesky_ex + cholesky_solve {t_chol:.4f}; device "
         f"us a launch cold {k7_us[0]:.1f}, warm {k7_us[1]:.1f}; bound ms "
-        f"{entries['wpe_solve']['bound'][0]:.4f} ({entries['wpe_solve']['bound'][1]}, float64)")
+        f"{entries['wpe_solve']['bound'][0]:.4f} ({entries['wpe_solve']['bound'][1]}, float64); "
+        f"other n against complex128, one launch a call, bit-identical: " + json.dumps(other_n)
+        + f"; n = {K7.MAX_N + 1} refused; the large route, device us a launch cold: "
+        + json.dumps(large))
     return entries
 
 
@@ -1207,7 +1268,7 @@ _PORT_KERNELS = (
     "compress_kernel", "compress_bwd_kernel", "comp_loss_fwd_kernel", "comp_loss_bwd_kernel",  # K4
     "minphase_fwd_kernel", "minphase_bwd_kernel",                                         # K5
     "design_fwd_kernel", "design_bwd_kernel",                                             # K6
-    "wpe_solve_kernel")                                                                   # K7
+    "wpe_solve_kernel", "wpe_solve_large_kernel")                                         # K7
 
 
 def profile_main_path(run, n_steps: int) -> None:
@@ -1260,14 +1321,18 @@ def wpe_warm_init(dev, wcfg) -> None:
     with torch.no_grad():
         ms = cuda_ms(call, reps=5)
         found = profile_device_us(call, reps=reps)
-    split = {"K7 wpe_solve_kernel": [0.0, 0], "K2 stft kernels": [0.0, 0],
+    split = {"K7 wpe_solve kernels": [0.0, 0], "K2 stft kernels": [0.0, 0],
              "matmuls (cuBLAS)": [0.0, 0], "other": [0.0, 0]}
     for name, (us, count) in found.items():
         low = name.lower()
-        key = ("K7 wpe_solve_kernel" if name == "wpe_solve_kernel" else
-               "K2 stft kernels" if name.startswith("stft_") else
-               "matmuls (cuBLAS)" if any(w in low for w in ("gemm", "gemv", "cutlass", "xmma"))
-               else "other")
+        if name in ("wpe_solve_kernel", "wpe_solve_large_kernel"):
+            key = "K7 wpe_solve kernels"
+        elif name.startswith("stft_"):
+            key = "K2 stft kernels"
+        elif any(w in low for w in ("gemm", "gemv", "cutlass", "xmma")):
+            key = "matmuls (cuBLAS)"
+        else:
+            key = "other"
         split[key][0] += us / reps / 1e3
         split[key][1] += count // reps
     device = sum(v[0] for v in split.values())
