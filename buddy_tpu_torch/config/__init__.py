@@ -9,11 +9,13 @@ per config group; ``group=name`` overrides swap a group's file, dotted
 Public API:
     compose(config_name, overrides=[], config_dir=None) -> ConfigDict
     instantiate(cfg, *args, **kwargs) -> object
+    parse_cli(argv) -> (config name, overrides, device) of the CLIs
     ConfigDict — attribute-access dict
 """
 
 from __future__ import annotations
 
+import argparse
 import copy
 import importlib
 import os
@@ -173,3 +175,25 @@ def save_config(cfg: ConfigDict, path: str) -> None:
     """OmegaConf.save analogue (tester.py:205-207 writes the resolved config)."""
     with open(path, "w") as f:
         yaml.safe_dump(cfg.to_dict(), f, sort_keys=False)
+
+
+def parse_cli(argv):
+    """(config name, overrides, device) from the command line of
+    ``python -m buddy_tpu_torch.testing`` and ``python -m
+    buddy_tpu_torch.training``: ``--config-name=<yaml>`` and the reference's
+    override grammar; the reference's ``+gpu=N`` is accepted and dropped,
+    and ``device=<name>`` picks the device (None: the card) and is not part
+    of the config."""
+    parser = argparse.ArgumentParser(add_help=False)
+    parser.add_argument("--config-name", default="conf_VCTK.yaml")
+    known, rest = parser.parse_known_args(argv)
+    overrides, device = [], None
+    for o in rest:
+        if "=" not in o:
+            continue
+        key, _, value = o.lstrip("+").partition("=")
+        if key == "device":
+            device = value
+        elif key != "gpu":
+            overrides.append(o)
+    return known.config_name, overrides, device

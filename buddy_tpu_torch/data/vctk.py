@@ -1,11 +1,15 @@
-"""VCTK test sets (``buddy_tpu/data/vctk.py``), numpy only.
+"""VCTK datasets (``buddy_tpu/data/vctk.py``), numpy only.
 
+* ``VCTKTrain``: an endless stream of random training crops from
+  ``path/<speaker>/*.wav``, the discarded and the test speakers left out;
 * ``VCTKTest``: a fixed utterance list from the test speakers, preloaded;
 * ``VCTKTestPaired``: clean/RIR pairs for dereverberation benchmarks under
   ``path/clean/<speaker>`` and ``path/rir/<speaker>``; each RIR is cropped at
   its direct path (the argmax of its magnitude) and peak-normalised.
 
-``VCTKTrain`` (random training crops) is not ported yet: it comes with the trainer.
+They draw from Python's ``random`` and numpy's global generator as the JAX
+package's classes do, so for the same files and seed they give the same
+segments.
 """
 
 from __future__ import annotations
@@ -13,7 +17,7 @@ from __future__ import annotations
 import glob
 import os
 import random
-from typing import List, Tuple
+from typing import Iterator, List, Tuple
 
 import numpy as np
 
@@ -30,6 +34,43 @@ def _scan_speakers(path: str, speakers_discard, speakers_test, *, keep_test: boo
             continue
         files.extend(sorted(glob.glob(os.path.join(path, s, "*.wav"))))
     return files
+
+
+class VCTKTrain:
+    """Endless random training segments: a file drawn with
+    ``random.Random(seed)``, then a crop at an offset from numpy's global
+    generator (seeded with ``seed`` here), or a wrap-pad where the file is
+    shorter than the segment."""
+
+    def __init__(self, fs=16000, segment_length=65536, path="",
+                 speakers_discard=(), speakers_test=(), normalize=False, seed=0,
+                 **_unused):
+        random.seed(seed)
+        np.random.seed(seed)
+        self.train_samples = _scan_speakers(path, speakers_discard,
+                                            speakers_test, keep_test=False)
+        assert len(self.train_samples) > 0, \
+            "error in dataloading: empty or nonexistent folder"
+        self.segment_length = int(segment_length)
+        self.fs = fs
+        if normalize:
+            raise NotImplementedError("normalization not implemented yet")
+        self._rng = random.Random(seed)
+
+    def __iter__(self) -> Iterator[np.ndarray]:
+        while True:
+            yield self.sample_segment()
+
+    def sample_segment(self) -> np.ndarray:
+        file = self.train_samples[self._rng.randint(0, len(self.train_samples) - 1)]
+        data, sr = read_wav(file)
+        assert sr == self.fs, "wrong sampling rate"
+        L = len(data)
+        if L > self.segment_length:
+            idx = np.random.randint(0, L - self.segment_length)
+            return data[idx: idx + self.segment_length]
+        idx = np.random.randint(0, max(self.segment_length - L, 1))
+        return np.pad(data, (idx, self.segment_length - L - idx), "wrap")
 
 
 class VCTKTest:

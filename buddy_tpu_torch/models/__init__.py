@@ -1,3 +1,7 @@
+import contextlib
+
+import torch
+
 from buddy_tpu_torch.models.ncsnpp import NCSNpp, NCSNppTime, NCSNppTimeModule
 
 
@@ -8,9 +12,24 @@ class NetworkBundle:
 
     def __init__(self, module):
         self.module = module
+        self._weights = None
 
     def __call__(self, x, cnoise):
-        return self.module(x, cnoise)
+        if self._weights is None:
+            return self.module(x, cnoise)
+        return torch.func.functional_call(self.module, self._weights, (x, cnoise), strict=True)
+
+    @contextlib.contextmanager
+    def weights(self, state: dict):
+        """Inside the block, calls run the module with the tensors of
+        ``state`` (a full state dict) in place of its parameters, which stay
+        as they are: the trainer samples from its EMA this way while the
+        module holds the weights it trains."""
+        prev, self._weights = self._weights, state
+        try:
+            yield self
+        finally:
+            self._weights = prev
 
     def load_jax_params(self, tree) -> None:
         """Load the JAX package's parameter tree (nested numpy dicts)."""

@@ -14,11 +14,13 @@ import torch
 from buddy_tpu_torch.ops.dft import good_fft_size
 
 
-def fft_convolve(y: torch.Tensor, filt: torch.Tensor) -> torch.Tensor:
+def fft_convolve(y: torch.Tensor, filt: torch.Tensor, *, zero_pad: bool = False) -> torch.Tensor:
     """Linear convolution of a (..., N) signal with a (..., M) filter,
-    cropped to N."""
+    cropped to N.  ``zero_pad`` sizes the FFT for 2N + 2M - 1 points, as
+    the reference does there; any length of at least N + M - 1 gives the
+    same cropped output."""
     n, m = y.shape[-1], filt.shape[-1]
-    fft_size = good_fft_size(n + m - 1)
+    fft_size = good_fft_size(2 * n + 2 * m - 1 if zero_pad else n + m - 1)
     out = torch.fft.ifft(torch.fft.fft(y, n=fft_size, dim=-1)
                          * torch.fft.fft(filt, n=fft_size, dim=-1), dim=-1)
     return out[..., :n].real

@@ -18,13 +18,15 @@ from buddy_tpu_torch.sampling.schedule import create_schedule, get_gamma
 
 
 class NoiseSource:
-    """Gaussian draws for the sampler, by kind: ``"init"`` (the initial
-    noise), ``"eps"`` (the churn noise of each step) and ``"reg"`` (the RIR
-    regulariser noise of each operator update).  The default draws from one
-    ``torch.Generator`` on its own device and moves each draw to ``device``:
-    a CPU generator gives a card run and a CPU run the same draws.  A test
-    can replay another framework's draws by passing an object with the same
-    ``normal`` method."""
+    """Random draws by kind.  Gaussian: ``"init"`` (the sampler's initial
+    noise), ``"eps"`` (the churn noise of each step), ``"reg"`` (the RIR
+    regulariser noise of each operator update) and ``"prior"`` (the
+    trainer's noise); uniform on [0, 1): ``"sigma"`` (the trainer's noise
+    levels).  The default draws from one ``torch.Generator`` on its own
+    device and moves each draw to ``device``: a CPU generator gives a card
+    run and a CPU run the same draws.  A test can replay another framework's
+    draws by passing an object with the same ``normal`` and ``uniform``
+    methods."""
 
     def __init__(self, generator: torch.Generator):
         self.generator = generator
@@ -32,6 +34,10 @@ class NoiseSource:
     def normal(self, kind: str, shape, device) -> torch.Tensor:
         g = self.generator
         return torch.randn(shape, generator=g, device=g.device).to(device)
+
+    def uniform(self, kind: str, shape, device) -> torch.Tensor:
+        g = self.generator
+        return torch.rand(shape, generator=g, device=g.device).to(device)
 
 
 class Sampler:

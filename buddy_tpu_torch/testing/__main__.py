@@ -11,16 +11,8 @@ taken from the directory that holds the package.
 
 from __future__ import annotations
 
-import argparse
 import os
 import sys
-
-
-def parse_cli(argv):
-    parser = argparse.ArgumentParser(add_help=False)
-    parser.add_argument("--config-name", default="conf_VCTK.yaml")
-    known, overrides = parser.parse_known_args(argv)
-    return known.config_name, [o for o in overrides if "=" in o]
 
 
 def _main(args, device=None):
@@ -69,16 +61,8 @@ def _main(args, device=None):
 
 
 def main(argv=None):
-    from buddy_tpu_torch.config import compose
-    config_name, overrides = parse_cli(argv if argv is not None else sys.argv[1:])
-    # the reference passes +gpu=N: accepted and dropped; device=<name> picks
-    # the device and is not part of the config
-    overrides = [o for o in overrides if not o.lstrip("+").startswith("gpu=")]
-    device = None
-    for o in overrides:
-        if o.lstrip("+").startswith("device="):
-            device = o.partition("=")[2]
-    overrides = [o for o in overrides if not o.lstrip("+").startswith("device=")]
+    from buddy_tpu_torch.config import compose, parse_cli
+    config_name, overrides, device = parse_cli(argv if argv is not None else sys.argv[1:])
     _main(compose(config_name, overrides), device=device)
 
 

@@ -52,12 +52,15 @@ def _numpy(t) -> np.ndarray:
 
 class Tester:
     def __init__(self, args, network, diff_params, test_set=None, device=None,
-                 seed: int = 42):
+                 seed: int = 42, in_training: bool = False):
         self.args = args
         self.network = network                      # NetworkBundle
         self.diff_params = diff_params
         self.device = resolve_device(device)
         self.test_set = test_set
+        # inside the trainer: no directories, and no files for the
+        # unconditional samples, which do_test returns
+        self.in_training = in_training
         self.it = 0
         self.noise = NoiseSource(torch.Generator().manual_seed(seed))
         self.reset_noise = NoiseSource(torch.Generator().manual_seed(seed + 1))
@@ -90,9 +93,10 @@ class Tester:
         audio_len = int(tcfg["unconditional"].get("audio_len", self.args["exp"]["audio_len"]))
         shape = (int(tcfg["unconditional"]["num_samples"]), audio_len)
         preds = _numpy(self.sampler.predict_unconditional(shape, noise=self.noise))
-        for i in range(len(preds)):
-            write_audio_file(preds[i], self.args["exp"]["sample_rate"],
-                             f"unconditional_{i}", path=self.paths["unconditional"])
+        if not self.in_training:
+            for i in range(len(preds)):
+                write_audio_file(preds[i], self.args["exp"]["sample_rate"],
+                                 f"unconditional_{i}", path=self.paths["unconditional"])
         return preds
 
     # --- dereverberation ------------------------------------------------------
@@ -332,18 +336,21 @@ class Tester:
         for m in self.args["tester"]["modes"]:
             if m == "unconditional":
                 print("testing unconditional")
-                self.prepare_directories(m, unconditional=True)
-                self.save_experiment_args(m)
+                if not self.in_training:
+                    self.prepare_directories(m, unconditional=True)
+                    self.save_experiment_args(m)
                 return self.sample_unconditional(m)
             elif m == "informed_dereverberation":
                 print("testing informed dereverberation")
-                self.prepare_directories(m)
-                self.save_experiment_args(m)
+                if not self.in_training:
+                    self.prepare_directories(m)
+                    self.save_experiment_args(m)
                 self.test_dereverberation(m)
             elif m == "blind_dereverberation":
                 print("testing blind dereverberation")
-                self.prepare_directories(m)
-                self.save_experiment_args(m)
+                if not self.in_training:
+                    self.prepare_directories(m)
+                    self.save_experiment_args(m)
                 self.test_dereverberation(m, blind=True)
             else:
                 print("Warning: unknown mode: ", m)

@@ -125,7 +125,7 @@ def main_path_times(dev, runs: int = 3) -> dict:
     return {"python_profile": text.getvalue(), "sampler_ms_per_step": steps, "device_ms_per_step": busy / T,
             "k6_device_ms_per_step": sum(r[1] for r in rows if r[0].startswith("design_")) / T,
             "launches_per_step": sum(r[2] for r in rows) / T,
-            "idle": 1 - busy / (wall * 1e3)}
+            "idle": 1 - cs.device_busy_ms(prof) / (wall * 1e3)}
 
 
 def one(tree: str) -> dict:

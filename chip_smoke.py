@@ -55,10 +55,31 @@ Phases, each printing one line:
    path at a small network; and the CLI, ``python -m
    buddy_tpu_torch.testing``, as a subprocess with a checkpoint that the
    JAX package wrote;
-6. the blind program at a small size on the card (kernels) and on the CPU
-   (plain versions) with the same weights and noise: the outputs must agree.
+6. training and checkpointing: the 8 in-repo clean utterances written under
+   chiprun_out/train/<speaker>/ and read through ``VCTKTrain`` and
+   ``make_train_loader``; K1 in float32 at every GroupNorm shape of the
+   train step (batch 16), forward and backward with d weight and d bias,
+   against its plain version, timed beside it and ``F.group_norm``; K2 at
+   the model geometry on a (16, 65536) float32 batch, the analysis, the
+   synthesis and both backwards against the plain version, bit for bit
+   between two calls; the full-width network trained at the shipped exp (batch 16 x 65536,
+   float32, Adam, clip, EMA) through ``Trainer.training_loop`` for 5 steps
+   with saves at it=2 and 4, K1 (both directions) and K2 launched in every
+   step; a new Trainer resumed from the save at it=2 held bit for bit to
+   the uninterrupted run (cuDNN deterministic); ms a step (deterministic
+   and default cuDNN), peak memory, one profiled step (device time by part,
+   launches, idle share from the union of the device's intervals; the
+   table to chiprun_out/); ``heavy_logging`` from
+   the EMA leaving the trainer's weights as they were; the training CLI
+   ``python -m buddy_tpu_torch.training`` at nf=8, then the testing CLI on
+   the checkpoint it wrote;
+7. the blind program and one train step at a small size on the card
+   (kernels) and on the CPU (plain versions) with the same weights and
+   noise: the outputs must agree.
 
-A JSON line of the kernels' results precedes the last line, which is
+A JSON line of the kernels' results precedes the last line (K1's float32
+rows from phase 6, their launches those of its training loop; K2's check
+at the training shapes under its rows' ``training_shape``), which is
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script then
 exits non-zero without that line.  It imports nothing of JAX.
 """
@@ -84,8 +105,15 @@ GN_SHAPES = [(8, 128, 256, 528), (8, 256, 128, 264), (8, 256, 64, 132), (8, 256,
 K3_SHAPE = (8, 513, 517, 100, 1)
 
 
+LOG_PATH = os.path.join(OUT_DIR, "chip_smoke.log")
+
+
 def log(msg: str) -> None:
+    """Print a line, and keep it in chiprun_out/chip_smoke.log (the whole
+    run's lines, for a reader who has only the end of the output)."""
     print(msg, flush=True)
+    with open(LOG_PATH, "a") as f:
+        f.write(msg + "\n")
 
 
 _FLUSH = {}
@@ -220,8 +248,13 @@ def device_us_per_launch(fn, names, reps: int = 20, cold: bool = True) -> dict:
 
 
 def device_us_per_call(fn, reps: int = 20, cold: bool = True) -> float:
-    """Device us of all the kernels of one call of fn()."""
-    return sum(t for t, _ in profile_device_us(fn, reps, cold).values()) / reps
+    """Device us of all the kernels of one call of fn(); a profile with no
+    device time is taken again, up to twice, as in ``device_us_per_launch``."""
+    for _ in range(3):
+        us = sum(t for t, _ in profile_device_us(fn, reps, cold).values()) / reps
+        if us > 0:
+            return us
+    raise AssertionError("profile shows no device time in three windows")
 
 
 def synthesis_basis(plan):
@@ -1271,6 +1304,22 @@ _PORT_KERNELS = (
     "wpe_solve_kernel", "wpe_solve_large_kernel")                                         # K7
 
 
+def device_busy_ms(prof) -> float:
+    """ms in which the card ran at least one kernel, copy or set: the union
+    of the device events' intervals in a profiler's trace (summed kernel
+    times count overlapping kernels twice)."""
+    import torch
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
+    busy, end = 0.0, float("-inf")
+    for start, stop in spans:
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy / 1e3
+
+
 def profile_main_path(run, n_steps: int) -> None:
     """One more main-path run under torch.profiler: device ms per step of
     each of the port's kernels (by exact function name) and of all other
@@ -1286,6 +1335,7 @@ def profile_main_path(run, n_steps: int) -> None:
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
             if e.self_device_time_total > 0 and e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(r[1] for r in rows)
+    union = device_busy_ms(prof)
     ours = {k: 0.0 for k in _PORT_KERNELS}
     ours_count = 0
     for name, ms, count in rows:
@@ -1301,8 +1351,9 @@ def profile_main_path(run, n_steps: int) -> None:
     per_step["other kernels"] = round((busy - sum(ours.values())) / n_steps, 3)
     total = sum(r[2] for r in rows)
     log(f"profile (main path through the tester, {n_steps} steps, profiler on): wall "
-        f"{wall * 1e3:.1f} ms, device busy {busy:.1f} ms ({100 * busy / (wall * 1e3):.1f}%), idle "
-        f"{100 * (1 - busy / (wall * 1e3)):.1f}%; device kernel and copy launches {total} "
+        f"{wall * 1e3:.1f} ms, device time summed {busy:.1f} ms, busy (the union of the device "
+        f"events) {union:.1f} ms ({100 * union / (wall * 1e3):.1f}%), idle "
+        f"{100 * (1 - union / (wall * 1e3)):.1f}%; device kernel and copy launches {total} "
         f"({total / n_steps:.0f} per step; {ours_count} of them the port's kernels); device ms "
         f"per step: " + json.dumps(per_step))
 
@@ -1537,6 +1588,589 @@ def small_reference(dev):
         f"max abs error {err:.3e} (tolerance {tol:.3e})")
 
 
+# ---------------------------------------------------------------------------
+# phase 6: training and checkpointing
+# ---------------------------------------------------------------------------
+TRAIN_BATCH = 16                # the shipped exp: batch 16 of 65536 samples, float32
+TRAIN_GRAD_ACCUM = 1            # exp.grad_accum of the full-width run
+TRAIN_STEPS = 5                 # the uninterrupted run: it = 0 .. 4, saves at it = 2 and 4
+TINY_TRAIN = ["network.nf=8", "network.ch_mult=[1,2,2,2]", "network.num_res_blocks=1"]
+
+
+class RecordingLoader:
+    """A batch loader that keeps every batch it hands out."""
+
+    def __init__(self, inner):
+        self.inner, self.batches = inner, []
+
+    def next_batch(self):
+        batch = self.inner.next_batch()
+        self.batches.append(batch)
+        return batch
+
+    def close(self):
+        self.inner.close()
+
+
+class ReplayLoader:
+    """Hands out given batches in order."""
+
+    def __init__(self, batches):
+        self.batches = list(batches)
+
+    def next_batch(self):
+        return self.batches.pop(0)
+
+
+def write_train_set(root: str) -> str:
+    """The 8 in-repo clean utterances of 65536 samples under
+    ``root/<speaker>/``, the layout ``VCTKTrain`` scans (p225, p226)."""
+    from buddy_tpu_torch.data.audio_io import write_wav
+    shutil.rmtree(root, ignore_errors=True)
+    for i, utt in enumerate(load_wavs("clean", 8, 65536)[:, 0]):
+        spk = "p225" if i < 4 else "p226"
+        os.makedirs(os.path.join(root, spk), exist_ok=True)
+        write_wav(os.path.join(root, spk, f"utt{i}.wav"), utt, 16000)
+    return root
+
+
+def build_trainer(dev, overrides, loader=None, noise=None):
+    """compose -> training set and loader (unless ``loader`` is given) ->
+    network (random weights from exp.seed) -> in-training tester ->
+    Trainer, as ``python -m buddy_tpu_torch.training`` builds them."""
+    import torch
+    from buddy_tpu_torch.config import compose, instantiate
+    from buddy_tpu_torch.data.loader import make_train_loader
+    from buddy_tpu_torch.models import NetworkBundle
+    from buddy_tpu_torch.testing.tester import Tester
+    args = compose("conf_VCTK.yaml", overrides)
+    args["exp"]["model_dir"] = args["model_dir"]
+    os.makedirs(args["model_dir"], exist_ok=True)
+    if loader is None:
+        loader = RecordingLoader(make_train_loader(
+            instantiate(args["dset"]["train"]), batch_size=int(args["exp"]["batch_size"])))
+    net = NetworkBundle(instantiate(args["network"], device=dev, seed=int(args["exp"]["seed"])))
+    diff = instantiate(args["diff_params"])
+    args["tester"]["sampling_params"]["same_as_training"] = True
+    tester = Tester(args, net, diff, device=dev, in_training=True)
+    trainer = instantiate(args["exp"]["trainer"], args, loader, net, diff, tester, device=dev,
+                          noise=noise)
+    return trainer, loader
+
+
+def gn_calls_of_step(module, batch: int, length: int, dev):
+    """[((B, C, H, W), silu)] of every GroupNorm call of one forward at the
+    training batch, in call order (forward hooks on the GroupNormAct
+    modules)."""
+    import torch
+    import torch.nn.functional as F
+    from buddy_tpu_torch.models.layers import GroupNormAct
+    calls = []
+    hooks = [m.register_forward_pre_hook(
+        lambda m, a: calls.append((tuple(a[0].shape), m.act is F.silu)))
+        for m in module.modules() if isinstance(m, GroupNormAct)]
+    try:
+        with torch.no_grad():
+            module(torch.zeros((batch, 1, length), device=dev), torch.zeros((batch,), device=dev))
+    finally:
+        for h in hooks:
+            h.remove()
+    return calls
+
+
+def k1_training_checks(dev, calls) -> dict:
+    """K1 in float32 at every GroupNorm shape of the train step, forward and
+    backward with d weight and d bias, through the autograd wrapper and the
+    C calls, against the plain version; each timed (cold) beside the plain
+    version and F.group_norm (+ F.silu), the backward with autograd, and
+    the kernels' device us a call from the profiler (cold).  The bound
+    counts x read and y written (forward, 8 bytes an element, 10
+    operations), x and dy read and dx written (backward, 12 bytes, 20
+    operations).  Returns the kernels line's two entries at the top-level
+    shape, the others under "shapes"."""
+    import torch
+    import torch.nn.functional as F
+    from buddy_tpu_torch.ops import groupnorm as K1
+    g = torch.Generator(device=dev).manual_seed(2)
+    cl = torch.channels_last
+    rand = lambda *s: torch.randn(s, generator=g, device=dev)
+    shapes = {}
+    for shape, silu in calls:
+        shapes[(shape, silu)] = shapes.get((shape, silu), 0) + 1
+    table, entries = [], {}
+    for (shape, silu), count in sorted(shapes.items(), key=lambda kv: -kv[0][0][1] * kv[0][0][2]
+                                       * kv[0][0][3]):
+        B, C, H, W = shape
+        G = min(C // 4, 32)
+        act = F.silu if silu else (lambda v: v)
+        x = (rand(B, C, H, W) * 2 + 0.3).contiguous(memory_format=cl)
+        dy = rand(B, C, H, W).contiguous(memory_format=cl)
+        w, b = 1 + 0.1 * rand(C), 0.1 * rand(C)
+        xp, wp, bp = (t.detach().clone().requires_grad_(True) for t in (x, w, b))
+        yp = K1.group_norm_act_plain(xp, wp, bp, G, 1e-6, silu=silu)
+        dxp, dwp, dbp = torch.autograd.grad(yp, (xp, wp, bp), dy, retain_graph=True)
+        xa, wa, ba = (t.detach().clone().requires_grad_(True) for t in (x, w, b))
+        ya = K1.group_norm_act(xa, wa, ba, G, 1e-6, silu=silu)
+        dxa, dwa, dba = torch.autograd.grad(ya, (xa, wa, ba), dy)
+        # float32 inside both, the statistics summed in another order: y and
+        # dx to 1e-5 of their peaks; d weight and d bias are sums of
+        # B H W = 2e5 - 2.2e6 terms a channel in another order: 1e-4 of the peak
+        tol_y, tol_dx = 1e-5 * float(yp.detach().abs().max()), 1e-5 * float(dxp.abs().max())
+        tol_w, tol_b = 1e-4 * float(dwp.abs().max()), 1e-4 * float(dbp.abs().max())
+        where = f"{list(shape)} silu={silu} float32"
+        err = {"y": max_err(ya.detach(), yp.detach()), "dx": max_err(dxa, dxp),
+               "dweight": max_err(dwa, dwp), "dbias": max_err(dba, dbp)}
+        for k, tol in (("y", tol_y), ("dx", tol_dx), ("dweight", tol_w), ("dbias", tol_b)):
+            check(f"groupnorm autograd {k} {where}", err[k], tol)
+        y_k, mr = K1._launch_forward(x, w, b, G, 1e-6, silu)
+        dx, dw, db = K1.group_norm_act_backward(x, dy, w, b, mr, silu, True)
+        check(f"groupnorm fwd {where}", max_err(y_k, yp.detach()), tol_y)
+        check(f"groupnorm bwd dx {where}", max_err(dx, dxp), tol_dx)
+        check(f"groupnorm bwd dweight {where}", max_err(dw, dwp), tol_w)
+        check(f"groupnorm bwd dbias {where}", max_err(db, dbp), tol_b)
+        again = K1.group_norm_act_backward(x, dy, w, b, mr, silu, True)
+        if not all(torch.equal(u, v) for u, v in zip((dx, dw, db), again)):
+            raise AssertionError(f"groupnorm {where}: two backward calls differ")
+        del dxp, dwp, dbp, dxa, dwa, dba, ya, xa, y_k, dx, dw, db, again
+        xl, wl, bl = (t.detach().clone().requires_grad_(True) for t in (x, w, b))
+        yl = act(F.group_norm(xl, G, wl, bl, 1e-6))
+        reps = 10 if x.numel() > 4e8 else 20
+        with torch.no_grad():
+            t_fwd = (cuda_ms(lambda: K1.group_norm_act(x, w, b, G, 1e-6, silu=silu), reps),
+                     cuda_ms(lambda: K1.group_norm_act_plain(x, w, b, G, 1e-6, silu=silu), reps),
+                     cuda_ms(lambda: act(F.group_norm(x, G, w, b, 1e-6)), reps))
+            t_bwd = [cuda_ms(lambda: K1.group_norm_act_backward(x, dy, w, b, mr, silu, True), reps)]
+        t_bwd += [cuda_ms(lambda: torch.autograd.grad(yp, (xp, wp, bp), dy, retain_graph=True),
+                          reps),
+                  cuda_ms(lambda: torch.autograd.grad(yl, (xl, wl, bl), dy, retain_graph=True),
+                          reps)]
+        with torch.no_grad():
+            us = (device_us_per_call(lambda: K1._launch_forward(x, w, b, G, 1e-6, silu), reps),
+                  device_us_per_call(
+                      lambda: K1.group_norm_act_backward(x, dy, w, b, mr, silu, True), reps))
+        n = x.numel()
+        b_f, b_b = bound_ms(8 * n, 10 * n), bound_ms(12 * n, 20 * n)
+        row = {"shape": list(shape), "silu": silu, "calls_per_forward": count,
+               "err": {k: float(v) for k, v in err.items()},
+               "device_us": [round(u, 1) for u in us],
+               "fwd_ms": [round(t, 4) for t in t_fwd], "bwd_ms": [round(t, 4) for t in t_bwd],
+               "bound_ms": [round(b_f[0], 4), round(b_b[0], 4)]}
+        table.append(row)
+        # the kernels line reports the top level's nf-channel shape with SiLU
+        # (the largest H W, the fewest channels there)
+        key = (-H * W, C)
+        if silu and (not entries or key < entries["key"]):
+            entries = {"key": key, "groupnorm_silu_fwd_f32": dict(
+                err=err["y"], tol=tol_y, times=t_fwd, shape=list(shape), bound=b_f,
+                extra={"device_us": us[0]}),
+                "groupnorm_silu_bwd_f32": dict(
+                err=err["dx"], tol=tol_dx, times=tuple(t_bwd), shape=list(shape), bound=b_b,
+                extra={"device_us": us[1], "dweight_err": err["dweight"],
+                       "dbias_err": err["dbias"]})}
+        del x, dy, xp, yp, xl, yl, mr
+        torch.cuda.empty_cache()
+    del entries["key"]
+    for e in entries.values():
+        e["extra"]["shapes"] = table
+    log(f"kernel K1 groupnorm float32 at the train step's {len(table)} GroupNorm shapes "
+        f"(batch {TRAIN_BATCH}, {sum(shapes.values())} calls a forward): y, dx, d weight and "
+        f"d bias through the autograd wrapper and the C calls match the plain version; device "
+        f"us a call [fwd, bwd], ms [kernel, plain, library] (cold) and bound ms [fwd, bwd]: "
+        + json.dumps(table))
+    return entries
+
+
+def k2_training_checks(dev) -> dict:
+    """K2 at the train step's shapes: the model geometry (510/128, reflect)
+    on a (TRAIN_BATCH, 65536) float32 batch.  A step runs the analysis (513
+    frames), the synthesis (528 frames, after pad_spec_frames) and the
+    synthesis's backward (the analysis with the ISTFT's bin weights); the
+    analysis's backward (the synthesis with unit weights) is held too.  Each
+    against its plain version (the backwards against autograd through the
+    plain version's torch.fft ops) to 1e-4 of the peak, as in phase 3, and
+    bit for bit between two calls; ms (cold) of the kernel, the plain
+    version and the library call (torch.stft, conv_transpose1d, and conv1d,
+    the transposed convolution's adjoint, for the synthesis's backward), the
+    kernel's device us a launch (cold) and the bound, counted as in phase
+    3.  Run before cuDNN is made deterministic: the library's convolutions
+    are timed with their default algorithms."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from buddy_tpu_torch.ops import stft as K2
+    from buddy_tpu_torch.ops.stft import STFT, hann_window, pad_spec_frames
+    g = torch.Generator(device=dev).manual_seed(3)
+    rand = lambda *s: torch.randn(s, generator=g, device=dev)
+    crand = lambda *s: torch.complex(rand(*s), rand(*s))
+    n_fft = 510
+    geom = STFT(n_fft, 128, hann_window(n_fft), pad_mode="reflect", device=dev)
+    plan = geom.plan
+    x = rand(TRAIN_BATCH, 65536)
+    blocks, T = geom.frame_blocks(x)
+    spec_p = K2.analysis_plain(blocks, plan, T, plan.ones).contiguous()
+    spec = pad_spec_frames(spec_p, 16).contiguous()
+    y_p = K2.synthesis_plain(spec, plan, plan.istft_weights)
+    gspec, gy = crand(*spec_p.shape), rand(*y_p.shape)
+
+    def grad(fn, leaf, g_out):
+        leaf = leaf.detach().requires_grad_(True)
+        return torch.autograd.grad(fn(leaf), leaf, g_out)[0]
+
+    real = lambda t: torch.view_as_real(t) if t.is_complex() else t
+    calls = {  # name: (kernel, plain version, frames of the FFTs)
+        "analysis": (lambda: K2.stft_analysis(blocks, plan, T),
+                     lambda: K2.analysis_plain(blocks, plan, T, plan.ones), T),
+        "synthesis": (lambda: K2.stft_synthesis(spec, plan),
+                      lambda: K2.synthesis_plain(spec, plan, plan.istft_weights), spec.shape[-1]),
+        "analysis_bwd": (lambda: grad(lambda b: K2.stft_analysis(b, plan, T), blocks, gspec),
+                         lambda: grad(lambda b: K2.analysis_plain(b, plan, T, plan.ones),
+                                      blocks, gspec), T),
+        "synthesis_bwd": (lambda: grad(lambda s: K2.stft_synthesis(s, plan), spec, gy),
+                          lambda: grad(lambda s: K2.synthesis_plain(s, plan, plan.istft_weights),
+                                       spec, gy), spec.shape[-1]),
+    }
+    z = torch.cat([spec.real, spec.imag], 1).contiguous()              # (N, 2F, frames)
+    wct = synthesis_basis(plan).to(dev)
+    gy_lib = rand(TRAIN_BATCH, 1, (spec.shape[-1] - 1) * plan.hop + wct.shape[-1])
+    wt = torch.as_tensor(hann_window(n_fft), device=dev)
+    library = {
+        "analysis": lambda: torch.stft(x, n_fft, 128, window=wt, center=True, pad_mode="reflect",
+                                       return_complex=True),
+        "synthesis": lambda: F.conv_transpose1d(z, wct, stride=plan.hop),
+        "analysis_bwd": None,
+        "synthesis_bwd": lambda: F.conv1d(gy_lib, wct, stride=plan.hop),
+    }
+    fft_flops = 2.5 * n_fft * np.log2(n_fft) * TRAIN_BATCH
+    out = {}
+    for name, (kern, plain, frames) in calls.items():
+        a, ref = kern(), plain()
+        tol = 1e-4 * float(ref.abs().max())
+        err = max_err(real(a), real(ref))
+        check(f"stft_{name} training shape {list(x.shape)}", err, tol)
+        if not torch.equal(a, kern()):
+            raise AssertionError(f"stft_{name} training shape: two calls differ")
+        spec_bytes = 8 * TRAIN_BATCH * plan.n_bins * frames
+        sig_bytes = 4 * (blocks.numel() if name.startswith("analysis") else y_p.numel())
+        b = bound_ms(spec_bytes + sig_bytes, fft_flops * frames)
+        lib = library[name]
+        times = (cuda_ms(kern), cuda_ms(plain), None if lib is None else cuda_ms(lib))
+        kname = "stft_analysis_kernel" if name in ("analysis", "synthesis_bwd") \
+            else "stft_synthesis_kernel"
+        us = device_us_per_launch(kern, [kname])[kname]
+        out[name] = {"err": err, "tol": tol, "ms": times, "device_us": us, "bound_ms": b[0],
+                     "bound_by": b[1]}
+    log(f"kernel K2 at the train step's shapes (model geometry 510/128 reflect, batch "
+        f"{list(x.shape)} float32: blocks {list(blocks.shape)}, spec {list(spec_p.shape)} -> "
+        f"{list(spec.shape)}): analysis, synthesis and both backwards match the plain version "
+        f"(1e-4 of the peak) and are bit-identical between two calls; ms [kernel, plain, "
+        f"library] (cold, the backwards through torch.autograd.grad), the kernel's device us "
+        f"a launch (cold) and bound: " + json.dumps(out))
+    return out
+
+
+def profile_train_step(trainer) -> dict:
+    """One train step under torch.profiler: device ms by part, the count of
+    launches, the device's busy time (the union of its events' intervals)
+    and idle share of the wall time; the per-kernel table goes to
+    chiprun_out/profile_train_step.txt."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.self_device_time_total > 0 and e.device_type == torch.autograd.DeviceType.CUDA]
+    parts = {"K1 groupnorm fwd": 0.0, "K1 groupnorm bwd": 0.0, "K2 stft": 0.0,
+             "cuDNN convolutions (their FFTs and layout transforms too)": 0.0,
+             "cuBLAS GEMMs (real: attention, dense layers, GEMM-route convolutions)": 0.0,
+             "optimizer and EMA (foreach)": 0.0, "other elementwise, reductions, copies": 0.0}
+    for key, ms, _ in rows:
+        name, low = kernel_name(key), key.lower()
+        if name in ("gn_stats_kernel", "gn_apply_kernel"):
+            part = "K1 groupnorm fwd"
+        elif name in ("gn_bwd_stats_kernel", "gn_bwd_apply_kernel"):
+            part = "K1 groupnorm bwd"
+        elif name.startswith("stft_"):
+            part = "K2 stft"
+        elif "multi_tensor_apply" in low:
+            part = "optimizer and EMA (foreach)"
+        elif any(s in low for s in ("cudnn", "conv", "fft2d", "wgrad", "dgrad", "fprop",
+                                    "winograd", "cf32")):
+            part = "cuDNN convolutions (their FFTs and layout transforms too)"
+        elif any(s in low for s in ("gemm", "cutlass", "cublas")):
+            part = "cuBLAS GEMMs (real: attention, dense layers, GEMM-route convolutions)"
+        else:
+            part = "other elementwise, reductions, copies"
+        parts[part] += ms
+    with open(os.path.join(OUT_DIR, "profile_train_step.txt"), "w") as f:
+        for key, ms, count in sorted(rows, key=lambda r: -r[1]):
+            f.write(f"{ms:12.3f} ms {count:8d}x  {key}\n")
+    union = device_busy_ms(prof)
+    # kernels on cuDNN's side streams overlap: their summed time can exceed
+    # the wall, so the idle share comes from the union of their intervals
+    return {"wall_ms": wall, "device_ms_summed": sum(parts.values()), "busy_ms": union,
+            "idle": 1 - union / wall,
+            "launches": sum(r[2] for r in rows),
+            "device_ms_by_part": {k: round(v, 3) for k, v in parts.items()}}
+
+
+def steps_ms(trainer, n: int) -> float:
+    """ms a train step (CUDA events around n steps, the loader and the
+    host's draws included)."""
+    import torch
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        trainer.train_step()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def training_path(dev, wrappers) -> dict:
+    """Phase 6: the full-width network trained on the card at the shipped
+    exp through ``Trainer.training_loop`` (saves, logs), K1 and K2 launched
+    in every step; a resumed Trainer's next steps held to the uninterrupted
+    run's; ms a step, peak memory, one profiled step; heavy_logging."""
+    import numpy as np
+    import torch
+    data = write_train_set(os.path.join(OUT_DIR, "train"))
+    model_dir = os.path.join(OUT_DIR, "train_runs", "full")
+    shutil.rmtree(model_dir, ignore_errors=True)
+    overrides = [
+        f"dset.train.path={data}", "dset.train.speakers_test=[]", "dset.train.speakers_discard=[]",
+        f"exp.batch_size={TRAIN_BATCH}", f"exp.grad_accum={TRAIN_GRAD_ACCUM}",
+        f"exp.max_iters={TRAIN_STEPS - 1}", "exp.resume=False", "logging.save_interval=2",
+        "logging.log_interval=1", "logging.heavy_log_interval=1000000",
+        "logging.remove_old_checkpoints=False", "tester=only_unconditional",
+        "tester.sampling_params.T=2", "tester.unconditional.num_samples=2",
+        f"model_dir={model_dir}"]
+    trainer, loader = build_trainer(dev, overrides)
+    a = trainer.args
+    calls = gn_calls_of_step(trainer.module, TRAIN_BATCH // TRAIN_GRAD_ACCUM, 65536, dev)
+    log(f"training: NCSN++ nf={a['network']['nf']} ch_mult={list(a['network']['ch_mult'])} "
+        f"({trainer.total_params / 1e6:.2f} M params, compute_dtype "
+        f"{a['network']['compute_dtype']}), batch {a['exp']['batch_size']} x "
+        f"{a['exp']['audio_len']}, grad_accum {trainer.grad_accum}, Adam lr {trainer.lr}, "
+        f"clip {trainer.max_grad_norm}, EMA {trainer.ema_rate} rampup {trainer.ema_rampup}; "
+        f"{len(calls)} GroupNorm calls a forward")
+    entries = k1_training_checks(dev, calls)
+    k2 = k2_training_checks(dev)
+    # the resume check holds the resumed run to the uninterrupted one bit for
+    # bit: cuDNN's deterministic algorithms (K1's sums are in a fixed order)
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+
+    k_names = ("groupnorm_silu_fwd", "groupnorm_silu_bwd", "stft_analysis", "stft_synthesis")
+    per_step = []
+    inner = trainer.train_step
+
+    def counted():
+        before = {k: wrappers[k].launches for k in k_names}
+        inner()
+        per_step.append({k: wrappers[k].launches - before[k] for k in k_names})
+
+    trainer.train_step = counted
+    p0 = {k: p.detach().clone() for k, p in trainer.params.items()}
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.training_loop()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {name: w.launches for name, w in wrappers.items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    trainer.train_step = inner
+    losses = [r["loss"] for r in trainer._log_rows]
+    if trainer.it != TRAIN_STEPS or len(per_step) != TRAIN_STEPS:
+        raise AssertionError(f"training loop: it={trainer.it}, {len(per_step)} steps")
+    if len(losses) != TRAIN_STEPS - 1 or not np.isfinite(losses).all():
+        raise AssertionError(f"training losses {losses}")
+    bad = [s for s in per_step if min(s.values()) == 0]
+    if bad:
+        raise AssertionError(f"a train step launched no K1 or K2: {per_step}")
+    w_key = "unet.all_modules.0.W"
+    moved = sum(not torch.equal(p, p0[k]) for k, p in trainer.params.items())
+    if not torch.equal(trainer.params[w_key], p0[w_key]) or moved < 0.8 * len(p0):
+        raise AssertionError(f"training: W changed or only {moved} of {len(p0)} leaves moved")
+    files = sorted(os.listdir(model_dir))
+    ckpts = [f for f in files if f.endswith(".ckpt")]
+    if ckpts != ["VCTK_16k_4s_time-2.ckpt", "VCTK_16k_4s_time-4.ckpt"] or \
+            "train_log.jsonl" not in files:
+        raise AssertionError(f"training output: {files}")
+    log(f"training loop (Trainer.training_loop, {TRAIN_STEPS} steps it=0..{TRAIN_STEPS - 1}, "
+        f"saves at it=2 and 4, logs at it=1..4, deterministic cuDNN): losses "
+        f"{[round(v, 5) for v in losses]}, grad norms "
+        f"{[round(r['grad_norm'], 4) for r in trainer._log_rows]}; W unchanged, {moved} of "
+        f"{len(p0)} leaves moved; wall {wall:.2f} s incl. the first step's set-up; peak memory "
+        f"{peak:.2f} GiB (max_memory_allocated); launches per step (K1 fwd, K1 bwd, K2 "
+        f"analysis, K2 synthesis): {json.dumps(per_step)}")
+
+    # resume from the save at it=2 and take the steps it=3, 4 on the batches
+    # the uninterrupted run took there
+    resumed, _ = build_trainer(dev, overrides + [
+        "exp.resume=True", f"exp.resume_checkpoint={os.path.join(model_dir, ckpts[0])}"],
+        loader=ReplayLoader(loader.batches[3:TRAIN_STEPS]))
+    if resumed.it != 2 or resumed.count != 3:
+        raise AssertionError(f"resume: it={resumed.it}, Adam count {resumed.count}")
+    for it in range(3, TRAIN_STEPS):
+        resumed.it = it
+        resumed.train_step()
+    diffs = {}
+    for what in ("params", "ema", "mu", "nu"):
+        x, y = getattr(trainer, what), getattr(resumed, what)
+        diffs[what] = max(float((x[k] - y[k]).detach().abs().max()) for k in x)
+    if any(diffs.values()) or resumed.count != trainer.count:
+        raise AssertionError(f"resumed run differs from the uninterrupted one: max abs "
+                             f"differences {diffs}")
+    log(f"resume from it=2: the steps it=3, 4 give parameters, EMA and Adam moments bit for bit "
+        f"equal to the uninterrupted run's (max abs differences {diffs})")
+    del resumed
+    loader.close()
+
+    # ms a step: deterministic cuDNN (the resume check's setting) and the default
+    trainer.dset = ReplayLoader(loader.batches[:TRAIN_STEPS] * 3)
+    ms_det = steps_ms(trainer, 3)
+    torch.backends.cudnn.deterministic = False
+    steps_ms(trainer, 1)
+    ms_default = steps_ms(trainer, 3)
+    prof = profile_train_step(trainer)
+    log(f"train step (batch {TRAIN_BATCH} x 65536, float32, grad_accum {TRAIN_GRAD_ACCUM}): "
+        f"{ms_default:.1f} ms a step (CUDA events over 3 steps, the loader and the host's draws "
+        f"included), {ms_det:.1f} ms with deterministic cuDNN; peak memory {peak:.2f} GiB; "
+        f"one profiled step: " + json.dumps(prof))
+
+    # heavy_logging: unconditional samples from the EMA, the trainer's weights untouched
+    before = {k: p.detach().clone() for k, p in trainer.params.items()}
+    bwd0 = wrappers["groupnorm_silu_bwd"].launches
+    trainer.heavy_logging()
+    changed = [k for k, p in trainer.params.items() if not torch.equal(p, before[k])]
+    samples = sorted(f for f in os.listdir(model_dir) if f.startswith("sample_"))
+    from buddy_tpu_torch.data.audio_io import read_wav
+    wavs = [read_wav(os.path.join(model_dir, f))[0] for f in samples]
+    if changed or len(samples) != 2 or not all(len(w_) == 65536 and np.isfinite(w_).all()
+                                               for w_ in wavs):
+        raise AssertionError(f"heavy_logging: changed {changed[:3]}, samples {samples}")
+    if wrappers["groupnorm_silu_bwd"].launches != bwd0:
+        raise AssertionError("heavy_logging ran K1's backward")
+    log(f"heavy_logging (unconditional, T=2, 2 samples x 65536 from the EMA): {samples}, "
+        f"finite; the trainer's parameters unchanged, no K1 backward")
+    step_counts = per_step[0]
+    for e in entries.values():
+        e["extra"]["training_ms_per_step"] = ms_default
+    entries["groupnorm_silu_fwd_f32"]["extra"]["launches_per_step"] = step_counts[
+        "groupnorm_silu_fwd"]
+    entries["groupnorm_silu_bwd_f32"]["extra"]["launches_per_step"] = step_counts[
+        "groupnorm_silu_bwd"]
+    del trainer
+    torch.cuda.empty_cache()
+    for f in ckpts:             # 1 GB each: not for chiprun_out's way back
+        os.remove(os.path.join(model_dir, f))
+    return {"entries": entries, "k2": k2, "launches": launches, "per_step": step_counts,
+            "ms_per_step": ms_default, "peak_gib": peak}
+
+
+def training_clis(dev) -> None:
+    """``python -m buddy_tpu_torch.training`` at the tiny network, then
+    ``python -m buddy_tpu_torch.testing`` on the checkpoint it wrote."""
+    import numpy as np
+    t0 = time.perf_counter()
+    model_dir = os.path.join(OUT_DIR, "train_runs", "cli")
+    shutil.rmtree(model_dir, ignore_errors=True)
+    cmd = [sys.executable, "-m", "buddy_tpu_torch.training", "--config-name=conf_VCTK.yaml",
+           *TINY_TRAIN, f"dset.train.path={os.path.join(OUT_DIR, 'train')}",
+           "dset.train.speakers_test=[]", "exp.batch_size=4", "exp.max_iters=2",
+           "logging.save_interval=2", "logging.log_interval=1", "logging.heavy_log_interval=2",
+           "tester.sampling_params.T=2", "tester.unconditional.num_samples=1",
+           f"model_dir={model_dir}"]
+    run = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    if run.returncode != 0 or "it=2 loss=" not in run.stdout:
+        raise AssertionError(f"training CLI exited with {run.returncode}:\n{run.stdout[-2000:]}\n"
+                             f"{run.stderr[-4000:]}")
+    ckpt = os.path.join(model_dir, "VCTK_16k_4s_time-2.ckpt")
+    if not os.path.exists(ckpt) or not os.path.exists(os.path.join(model_dir, "sample_0_it2.wav")):
+        raise AssertionError(f"training CLI wrote {sorted(os.listdir(model_dir))}")
+    data = os.path.join(OUT_DIR, "smoke_data")
+    cmd = [sys.executable, "-m", "buddy_tpu_torch.testing", "--config-name=conf_VCTK.yaml",
+           "tester=blind_dereverberation_BUDDy", f"tester.checkpoint={ckpt}", *TINY_TRAIN,
+           "dset=vctk_16k_4s_test-benchmark", f"dset.test.path={data}",
+           'dset.test.speakers_test=["p226"]', "dset.test.num_examples=2",
+           "tester.sampling_params.T=2", "tester.posterior_sampling.blind_hp.op_updates_per_step=2",
+           "tester.batched.use=True", "tester.batched.batch_size=2", "tester.overriden_name=cli",
+           f"model_dir={model_dir}"]
+    run = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
+    if run.returncode != 0 or "(it=2)" not in run.stdout:
+        raise AssertionError(f"testing CLI on the trained checkpoint exited with "
+                             f"{run.returncode}:\n{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
+    from buddy_tpu_torch.data.audio_io import read_wav
+    rec = read_wav(os.path.join(model_dir, "cli", "blind_dereverberation", "VCTK_16k_4s_time",
+                                "reconstructed", "utt0.wav"))[0]
+    if len(rec) != 65536 or not np.isfinite(rec).all():
+        raise AssertionError("testing CLI: reconstructed/utt0.wav is not 65536 finite samples")
+    log(f"training CLI (python -m buddy_tpu_torch.training, nf=8, batch 4 x 65536, "
+        f"max_iters=2): exit 0, checkpoint at it=2 and an in-training sample; the testing CLI "
+        f"(blind, 2 items) on that checkpoint: exit 0, finite WAVs; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def train_step_card_vs_cpu(dev) -> None:
+    """One train step of the tiny network on the card (kernels) and on the
+    CPU (plain versions): the same weights (seed), batch and draws (a CPU
+    generator).  Gradients to 1e-4 of each leaf's peak (no less than 1e-6
+    of the largest leaf's: the leaves whose sums cancel hold rounding);
+    the moments accordingly; the parameters and EMA after Adam's first step
+    lr g / (|g| + eps) to 1e-6 where |g| is 100 x above eps and the
+    gradient's tolerance (the step is lr sign(g) there), to 2 lr elsewhere
+    (the step's sign follows the last bits of g)."""
+    import numpy as np
+    import torch
+    from buddy_tpu_torch.sampling.euler_heun import NoiseSource
+    batch = load_wavs("clean", 2, 16384)[:, 0]
+    over = [*TINY_TRAIN, "exp.batch_size=2", "exp.audio_len=16384", "exp.resume=False",
+            "logging.log=False", f"model_dir={os.path.join(OUT_DIR, 'train_runs', 'small')}"]
+    out = []
+    for d in (dev, torch.device("cpu")):
+        trainer, _ = build_trainer(d, over, loader=ReplayLoader([batch]),
+                                   noise=NoiseSource(torch.Generator().manual_seed(6)))
+        trainer.train_step()
+        grads = {k: (p.grad if p.grad is not None else torch.zeros_like(p)).cpu()
+                 for k, p in trainer.params.items()}
+        out.append({"grads": grads, **{w: {k: v.detach().cpu() for k, v in
+                                           getattr(trainer, w).items()}
+                                       for w in ("params", "ema", "mu", "nu")},
+                    "loss": float(trainer._metrics_acc["loss"])})
+    card, cpu = out
+    top = max(float(g.abs().max()) for g in cpu["grads"].values())
+    worst = {"grads": 0.0, "mu": 0.0, "nu": 0.0, "params": 0.0, "ema": 0.0}
+    for k, g in cpu["grads"].items():
+        peak = float(g.abs().max())
+        tol = max(1e-4 * peak, 1e-6 * top)
+        checks = {"grads": (card["grads"][k], g, tol),
+                  "mu": (card["mu"][k], cpu["mu"][k], 0.1 * tol),
+                  "nu": (card["nu"][k], cpu["nu"][k], 1e-3 * (2 * peak * tol + tol * tol))}
+        for what, (a, b, t) in checks.items():
+            e = max_err(a, b)
+            worst[what] = max(worst[what], e / t if t else 0.0)
+            check(f"card vs CPU train step {what} {k}", e, t)
+        far = g.abs() > 100 * max(1e-8, tol)
+        for what in ("params", "ema"):
+            d = (card[what][k] - cpu[what][k]).abs()
+            if (d[far] > 1e-6).any() or (d[~far] > 2e-4).any():
+                raise AssertionError(f"card vs CPU train step {what} {k}: {float(d.max()):.3e}")
+            worst[what] = max(worst[what], float(d.max()))
+    rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    check("card vs CPU train step loss (relative)", rel, 1e-5)
+    log(f"train step card vs CPU (nf=8, batch 2 x 16384, same weights, batch and draws): loss "
+        f"{card['loss']:.6f} / {cpu['loss']:.6f}; largest error / tolerance of gradients, mu, "
+        f"nu {[round(worst[w], 3) for w in ('grads', 'mu', 'nu')]}, largest parameter and EMA "
+        f"differences {worst['params']:.2e} / {worst['ema']:.2e}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1546,6 +2180,9 @@ def main() -> int:
         print("chip_smoke: buddy_tpu_torch/ is not beside this script", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    if os.path.exists(LOG_PATH):
+        os.remove(LOG_PATH)
     from buddy_tpu_torch.device import resolve_device
     from buddy_tpu_torch.ops import (_build, filter_design as K6, groupnorm as K1, minphase as K5,
                                      spec_loss as K4, stft as K2, subband_conv as K3,
@@ -1634,8 +2271,22 @@ def main() -> int:
 
     launches, _ = main_path(dev, wrappers)
     other_modes(dev)
+    train = training_path(dev, wrappers)
+    training_clis(dev)
     small_reference(dev)
+    train_step_card_vs_cpu(dev)
 
+    # K1's float32 rows come from the training path, its launches from the
+    # training loop's run; K2 also reports its launches a train step
+    checks.update(train["entries"])
+    for name in ("groupnorm_silu_fwd", "groupnorm_silu_bwd"):
+        meta[name + "_f32"] = meta[name]
+        launches[name + "_f32"] = train["launches"][name]
+    for name in ("stft_analysis", "stft_synthesis"):
+        checks[name]["extra"]["training_launches_per_step"] = train["per_step"][name]
+        what = name.split("_")[1]
+        checks[name]["extra"]["training_shape"] = {k: train["k2"][k]
+                                                   for k in (what, what + "_bwd")}
     kernels = []
     for name, (route, source, replaces) in meta.items():
         c = checks[name]

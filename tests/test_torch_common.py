@@ -96,8 +96,9 @@ def torch_tiny_bundle(tree, dtype=None):
 
 
 class ReplayNoise:
-    """A noise source for the port's sampler that hands out given arrays in
-    order, per kind ("init", "eps", "reg")."""
+    """A noise source for the port's sampler and trainer that hands out
+    given arrays in order, per kind ("init", "eps", "reg", "prior" and the
+    uniform "sigma")."""
 
     def __init__(self, draws):
         self.draws = {k: list(v) for k, v in draws.items()}
@@ -106,6 +107,8 @@ class ReplayNoise:
         arr = self.draws[kind].pop(0)
         assert tuple(arr.shape) == tuple(shape), (kind, arr.shape, shape)
         return torch.as_tensor(np.asarray(arr, np.float32), device=device)
+
+    uniform = normal
 
 
 def jax_step_draws(rng, n_updates: int, x_shape, rir_len: int, reg: bool):
@@ -199,6 +202,91 @@ def jax_tester_draws(mode: str, n_items: int, n_pad: int, T: int, n_updates: int
         draws.append(jax_program_draws(k_pred, 1, n_pad, T, n_updates if blind else 0, rir_len,
                                        reg=blind, split=False))
     return merge_draws(*draws), resets
+
+
+def jax_train_draws(rng, batch_shape):
+    """The draws of one JAX ``Trainer.train_step`` from its key ``rng``
+    (trainer.py:221 split, then edm.loss_fn's split into the noise levels'
+    and the noise's keys); returns (next key, {"sigma": [u], "prior": [n]})."""
+    rng, k = jax.random.split(rng)
+    k_t, k_n = jax.random.split(k)
+    u = np.asarray(jax.random.uniform(k_t, (batch_shape[0],)))
+    n = np.asarray(jax.random.normal(k_n, batch_shape))
+    return rng, {"sigma": [u], "prior": [n]}
+
+
+class FixedLoader:
+    """A batch loader that always hands out the same batch."""
+
+    def __init__(self, batch):
+        self.batch = batch
+
+    def next_batch(self):
+        return self.batch
+
+
+TRAIN_SMALL = ["exp.batch_size=2", "exp.audio_len=4096", "exp.mesh.dp=1", "exp.resume=False",
+               "logging.log=False", "logging.save_model=False"]
+
+
+def jax_trainer(tree, batch, model_dir, extra=()):
+    """The JAX package's Trainer at TINY_NET on the weights ``tree``, fed
+    ``batch`` every step."""
+    from buddy_tpu.config import instantiate
+    from buddy_tpu.models import NetworkBundle
+    args = jax_compose(TINY_NET + TRAIN_SMALL + [f"model_dir={model_dir}", *extra])
+    args["exp"]["model_dir"] = args["model_dir"]
+    module = instantiate(args["network"])
+    net = NetworkBundle(module, jax.tree.map(jnp.asarray, tree))
+    return instantiate(args["exp"]["trainer"], args, FixedLoader(batch), net,
+                       instantiate(args["diff_params"]), None)
+
+
+def torch_trainer(tree, batch, model_dir, extra=(), noise=None, tester=None):
+    """The port's Trainer on the CPU, the same config, weights and batch."""
+    from buddy_tpu_torch.config import instantiate
+    args = torch_compose(TINY_NET + TRAIN_SMALL + [f"model_dir={model_dir}", *extra])
+    args["exp"]["model_dir"] = args["model_dir"]
+    return instantiate(args["exp"]["trainer"], args, FixedLoader(batch), torch_tiny_bundle(tree),
+                       instantiate(args["diff_params"]), tester, device="cpu", noise=noise)
+
+
+def clean_wav(i: int) -> np.ndarray:
+    """The in-repo clean utterance quality_out_heldout/clean_utt<i>.wav."""
+    from buddy_tpu_torch.data.audio_io import read_wav
+    return read_wav(os.path.join(REPO, "quality_out_heldout", f"clean_utt{i}.wav"))[0]
+
+
+LR, EPS = 1e-4, 1e-8        # the shipped exp's Adam
+
+
+def assert_after_adam(port, ref, g_ref, g_tol, margin: float = 100.0):
+    """Parameters (or EMA) after an Adam step from a state both packages
+    share, leaf by leaf, with g_ref the step's gradients and g_tol their
+    tolerance.  The step is lr m / (sqrt(v) + eps): where |g| is far above
+    eps and the gradient's rounding (``margin`` x the larger of eps and the
+    tolerance) it changes by about lr |dg| / |g| <= lr / margin for a
+    gradient error dg (from zero moments the step is lr g / (|g| + eps),
+    lr sign(g) up to lr eps / |g|), so the two agree to 1e-6 (the rounding
+    of parameters of order 1 and lr / margin); elsewhere the sign and size
+    of the step follow the last bits of g, and a step lies in [-lr, lr] in
+    both, so they differ by at most 2 lr."""
+    for p, r, g, t in zip(port, ref, g_ref, g_tol):
+        far = np.abs(g) > margin * max(EPS, t)
+        d = np.abs(np.asarray(p) - np.asarray(r))
+        assert (d[far] <= 1e-6).all(), float(d[far].max())
+        assert (d[~far] <= 2 * LR).all(), float(d[~far].max())
+
+
+def gradient_tolerances(g_ref):
+    """Per gradient leaf: 1e-4 of its peak, and no less than 1e-6 of the
+    largest leaf's peak.  The floor is for the leaves whose sums cancel: a
+    zero gradient in exact arithmetic (the attention's key bias NIN_1/b: the
+    softmax ignores a shift shared by every key) or nearly (the output
+    layer's bias, a sum over every position of the spectrum) holds float32
+    rounding of terms on the scale of the other leaves."""
+    top = max(float(np.abs(g).max()) for g in g_ref)
+    return [max(1e-4 * float(np.abs(g).max()), 1e-6 * top) for g in g_ref]
 
 
 def to_torch(params):

@@ -140,8 +140,9 @@ def test_jax_checkpoint_loads_into_the_port(tmp_path, nets):
     """A ``.ckpt`` written by the JAX package's ``save_checkpoint`` loads
     through ``load_any_checkpoint`` and ``from_jax_params``; both networks
     then give the same output (1e-4 of the peak: float32 U-Net, as in
-    test_torch_model).  EMA weights are preferred; ``.pt`` files and Orbax
-    directories raise a clear error."""
+    test_torch_model).  EMA weights are preferred; Orbax directories raise a
+    clear error, and a ``.pt`` path goes to the reference-layout loader
+    (tests/test_torch_checkpoint.py), which reports a missing file."""
     from buddy_tpu.training.checkpoint import save_checkpoint
     from buddy_tpu_torch.training.checkpoint import find_latest_checkpoint, load_any_checkpoint
     jnet, tree = nets
@@ -162,7 +163,7 @@ def test_jax_checkpoint_loads_into_the_port(tmp_path, nets):
     assert rel_err(out, ref) < 1e-4
     zeros, _ = load_any_checkpoint(path, prefer_ema=False)
     assert all(not np.any(v) for v in jax.tree.leaves(zeros))
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(FileNotFoundError):
         load_any_checkpoint(str(tmp_path / "weights.pt"))
     with pytest.raises(NotImplementedError, match="Orbax"):
         load_any_checkpoint(str(tmp_path))
