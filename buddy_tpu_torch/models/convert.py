@@ -13,7 +13,10 @@ inverse of ``buddy_tpu/models/convert.py::_convert_leaf``, and
 The tree is the JAX package's ``NetworkBundle.params`` as nested dicts of
 numpy arrays (``{"params": {"unet": {"all_modules_{i}": ...,
 "output_layer": ...}}}``); its keys are the port's
-``unet.all_modules.{i}.<sub>.<name>``.
+``unet.all_modules.{i}.<sub>.<name>``.  A static int8 network's variables
+also hold a "quant" collection of calibrated scales, ``{"quant": {"unet":
+{... "Conv_0": {"a_scale": (C_in,)}}}}``: the port's ``a_scale`` buffers
+under the same paths.
 
 ``convert_torch_state_dict`` and ``load_torch_checkpoint`` do what the JAX
 package's do: a reference ``.pt`` file, read with ``torch.load``, becomes
@@ -42,9 +45,11 @@ def _leaf(name: str, value: np.ndarray):
 
 
 def from_jax_params(tree: Mapping) -> dict:
-    """Nested numpy dicts of the JAX parameter tree -> torch state dict."""
+    """Nested numpy dicts of the JAX variables (or of the parameter tree
+    alone) -> torch state dict, the "quant" collection's scales included."""
+    trees = [tree]
     if "params" in tree:
-        tree = tree["params"]
+        trees = [tree["params"]] + ([tree["quant"]] if "quant" in tree else [])
     out = {}
 
     def walk(node, path):
@@ -58,7 +63,8 @@ def from_jax_params(tree: Mapping) -> dict:
                 name, arr = _leaf(key, np.asarray(value, np.float32))
                 out[".".join(path + [name])] = torch.from_numpy(np.ascontiguousarray(arr))
 
-    walk(tree, [])
+    for t in trees:
+        walk(t, [])
     return out
 
 
@@ -73,10 +79,12 @@ def _to_jax_leaf(name: str, value: np.ndarray):
 
 
 def to_jax_params(state: Mapping) -> dict:
-    """The port's state dict (tensors) -> the JAX parameter tree, nested
-    dicts of float32 numpy arrays under ``{"params": ...}``."""
-    tree: dict = {}
+    """The port's state dict (tensors) -> the JAX variables, nested dicts of
+    float32 numpy arrays under ``{"params": ...}``, and the ``a_scale``
+    buffers under ``{"quant": ...}`` where there are any."""
+    trees: dict = {}
     for key, value in state.items():
+        tree = trees.setdefault("quant" if key.endswith(".a_scale") else "params", {})
         parts = key.split(".")
         path, i = [], 0
         while i < len(parts) - 1:
@@ -92,7 +100,8 @@ def to_jax_params(state: Mapping) -> dict:
         for p in path:
             node = node.setdefault(p, {})
         node[name] = np.ascontiguousarray(arr)
-    return {"params": tree}
+    trees.setdefault("params", {})
+    return trees
 
 
 # ---------------------------------------------------------------------------

@@ -17,7 +17,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from buddy_tpu_torch.ops import qconv as Q
 from buddy_tpu_torch.ops.groupnorm import group_norm_act
+from buddy_tpu_torch.ops.resample import lhs_dilated_conv
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 
@@ -93,11 +95,93 @@ class Conv(nn.Conv2d):
         return self._conv_forward(x, self.weight.to(x.dtype), b)
 
 
-def conv3x3(in_ch, out_ch, *, init_scale=1.0, stride=1, bias=True) -> Conv:
+def quant_config(quant) -> tuple:
+    """``quant`` is True (int8 defaults) or (accum, bwd_quant, static_scale),
+    as the JAX package's ``qconv`` setting."""
+    accum, bwd, static = ("int32", False, False) if quant is True else quant
+    if accum not in Q.ACCUM:
+        raise ValueError(f"quantize_accum must be one of {sorted(Q.ACCUM)}, got {accum!r}")
+    return accum, bool(bwd), bool(static)
+
+
+class _Int8:
+    """The int8 path of a conv (kernel K10, ``ops/qconv.py``): its settings,
+    the ``a_scale`` buffer (C_in,) of calibrated |x| maxima when static
+    (zeros until ``NetworkBundle.calibrate_quant``), and the forward, which
+    keeps the quantized weights in ``weight_cache`` per version.  While
+    ``observing`` (calibration) a static conv maxes |x| into ``a_scale``
+    and quantizes dynamically, as the JAX package's does with its "quant"
+    collection mutable."""
+
+    observing = False
+
+    def _set_quant(self, quant, in_ch: int) -> None:
+        self.accum, self.bwd_quant, static = quant_config(quant)
+        if static:
+            self.register_buffer("a_scale", torch.zeros(in_ch))
+
+    def _int8(self, x):
+        a_scale = getattr(self, "a_scale", None)
+        if a_scale is not None and self.observing:
+            Q.observe_(a_scale, x)
+            a_scale = None
+        return Q.quantized_conv(x, self.weight, self.bias, self.kind, self.accum,
+                                self.bwd_quant, a_scale, cache=self.weight_cache)
+
+
+class QConv(_Int8, Conv):
+    """A stride-1 3x3 (pad 1) or 1x1 conv running int8, with straight-through
+    gradients; its parameters are Conv's, so checkpoints and the converter
+    see no difference (``buddy_tpu/ops/qconv.py::QConv``)."""
+
+    def __init__(self, in_ch, out_ch, kernel_size, *, bias=True, init_scale=1.0, quant=True):
+        super().__init__(in_ch, out_ch, kernel_size, padding=kernel_size // 2, bias=bias,
+                         init_scale=init_scale)
+        self.kind = {3: "3x3", 1: "1x1"}[kernel_size]
+        self.weight_cache = {}
+        self._set_quant(quant, in_ch)
+
+    def forward(self, x):
+        return self._int8(x)
+
+
+class FusedUpConv(_Int8, Conv):
+    """Nearest-up2, then a 3x3 (pad 1) or 1x1 conv, as one convolution of the
+    half-resolution input (K8, ``ops/resample.py``): the float route is one
+    transposed convolution with the derived 4x4 or 2x2 kernel; with
+    ``quant`` the derived kernel runs int8 through K10
+    (``buddy_tpu/models/layers.py::_FusedUpConv``).  Parameter names and
+    shapes are the plain conv's; ``float_calls`` counts the float route."""
+
+    float_calls = 0
+
+    def __init__(self, in_ch, out_ch, kernel_size, *, quant=False):
+        super().__init__(in_ch, out_ch, kernel_size, padding=kernel_size // 2)
+        self.kind = {3: "up3x3", 1: "up1x1"}[kernel_size]
+        self.weight_cache = {}
+        self.quant = bool(quant)
+        if quant:
+            self._set_quant(quant, in_ch)
+
+    def forward(self, x):
+        if self.quant:
+            return self._int8(x)
+        FusedUpConv.float_calls += 1
+        return lhs_dilated_conv(x, Q.float_weight(self.weight, self.kind, x.dtype,
+                                                  self.weight_cache), self.bias.to(x.dtype))
+
+
+def conv3x3(in_ch, out_ch, *, init_scale=1.0, stride=1, bias=True, quant=False) -> Conv:
+    if quant:
+        if stride != 1:
+            raise NotImplementedError("int8 convolutions run at stride 1")
+        return QConv(in_ch, out_ch, 3, bias=bias, init_scale=init_scale, quant=quant)
     return Conv(in_ch, out_ch, 3, padding=1, stride=stride, bias=bias, init_scale=init_scale)
 
 
-def conv1x1(in_ch, out_ch, *, init_scale=1.0, bias=True) -> Conv:
+def conv1x1(in_ch, out_ch, *, init_scale=1.0, bias=True, quant=False) -> Conv:
+    if quant:
+        return QConv(in_ch, out_ch, 1, bias=bias, init_scale=init_scale, quant=quant)
     return Conv(in_ch, out_ch, 1, bias=bias, init_scale=init_scale)
 
 
@@ -222,29 +306,39 @@ class AttnBlockpp(nn.Module):
 
 class ResnetBlockBigGANpp(nn.Module):
     """BigGAN residual block with optional nearest-up / avg-pool-down
-    resampling (the FIR resampling path is not ported)."""
+    resampling (the FIR resampling path is not ported: ROADMAP.md §1).
+
+    ``qconv``: falsy, True or (accum, bwd_quant, static_scale): Conv_0,
+    Conv_1 and Conv_2 run int8 (K10).  ``fuse_up``: an up-block folds the
+    nearest-up2 into Conv_0 and Conv_2 (K8, ``FusedUpConv``) and upsamples
+    nothing.  ``dropout`` is the identity, as in the JAX package: its
+    ResBlock applies ``nn.Dropout`` with ``deterministic=True`` by default
+    (``buddy_tpu/models/layers.py:417,458``) and no caller passes False, so
+    neither package drops anything, in training or in sampling."""
 
     def __init__(self, act, in_ch: int, out_ch: int | None = None, *, up=False, down=False,
-                 dropout=0.0, fir=False, skip_rescale=True, init_scale=0.0, temb_dim=None):
+                 dropout=0.0, fir=False, skip_rescale=True, init_scale=0.0, temb_dim=None,
+                 qconv=False, fuse_up=False):
         super().__init__()
         if fir:
-            raise NotImplementedError("FIR resampling is not ported")
-        if dropout:
-            raise NotImplementedError("dropout is not ported (inference only)")
+            raise NotImplementedError("FIR resampling is not ported yet (ROADMAP.md §1, item 1)")
         out_ch = out_ch or in_ch
         self.act, self.up, self.down, self.skip_rescale = act, up, down, skip_rescale
+        self.fused_up = up and fuse_up
         self.GroupNorm_0 = group_norm(in_ch, act)
-        self.Conv_0 = conv3x3(in_ch, out_ch)
+        self.Conv_0 = FusedUpConv(in_ch, out_ch, 3, quant=qconv) if self.fused_up \
+            else conv3x3(in_ch, out_ch, quant=qconv)
         if temb_dim is not None:
             self.Dense_0 = Dense(temb_dim, out_ch)
         self.GroupNorm_1 = group_norm(out_ch, act)
-        self.Conv_1 = conv3x3(out_ch, out_ch, init_scale=init_scale)
+        self.Conv_1 = conv3x3(out_ch, out_ch, init_scale=init_scale, quant=qconv)
         if in_ch != out_ch or up or down:
-            self.Conv_2 = conv1x1(in_ch, out_ch)
+            self.Conv_2 = FusedUpConv(in_ch, out_ch, 1, quant=qconv) if self.fused_up \
+                else conv1x1(in_ch, out_ch, quant=qconv)
 
     def forward(self, x, temb=None):
         h = self.GroupNorm_0(x)
-        if self.up:
+        if self.up and not self.fused_up:
             h, x = naive_upsample_2d(h), naive_upsample_2d(x)
         elif self.down:
             h, x = naive_downsample_2d(h), naive_downsample_2d(x)

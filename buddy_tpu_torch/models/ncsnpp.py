@@ -9,8 +9,11 @@ float32.
 
 Ported configuration space: ``resblock_type="biggan"`` without FIR
 resampling, ``progressive`` in {none, output_skip}, ``progressive_input`` in
-{none, input_skip}, fourier or positional embedding.  Everything else
-raises NotImplementedError.
+{none, input_skip}, fourier or positional embedding, ``dropout`` (the
+identity, as in the JAX package), the int8 ResBlock convolutions
+(``quantize_int8`` with ``quantize_accum``, ``quantize_bwd`` and
+``quantize_static``: kernel K10) and the fused up-convolutions
+(``fuse_resample``: K8).  Everything else raises NotImplementedError.
 
 ``NCSNppTimeModule`` wraps the U-Net with the 510/128 reflect STFT, the
 pad-frames-to-16 rule and the ISTFT cropped to the input length.
@@ -42,17 +45,25 @@ class NCSNpp(nn.Module):
                  progressive_combine="sum", init_scale=0.0, fourier_scale=16.0,
                  image_size=256, embedding_type="fourier", input_channels=2,
                  spatial_channels=1, dropout=0.0, centered=True, discriminative=False,
-                 compute_dtype=None, quantize_int8=False):
+                 compute_dtype=None, quantize_int8=False, quantize_accum="int32",
+                 quantize_bwd=False, quantize_static=False, fuse_resample=False):
         super().__init__()
-        if quantize_int8:
+        if fir:
+            raise NotImplementedError("FIR resampling is not ported yet (ROADMAP.md §1, item 1)")
+        if resblock_type != "biggan":
             raise NotImplementedError(
-                "quantize_int8: the int8 convolutions (K10, buddy_tpu/ops/qconv.py) are not "
-                "ported yet (ROADMAP.md, queue 2); a float network would give another result")
-        if resblock_type != "biggan" or fir:
-            raise NotImplementedError("only biggan ResBlocks without FIR resampling are ported")
+                "the ddpm ResBlock is not ported yet (ROADMAP.md §1, item 3); resblock_type "
+                "must be 'biggan'")
         if progressive not in ("none", "output_skip") or \
                 progressive_input not in ("none", "input_skip"):
-            raise NotImplementedError("residual skip pyramids are not ported")
+            raise NotImplementedError(
+                "residual skip pyramids are not ported yet (ROADMAP.md §1, item 4)")
+        # the int8 convolutions are the BigGAN ResBlocks' Conv_0, Conv_1 and
+        # Conv_2; the attention NINs, Combine, the pyramid, input and output
+        # convs and Dense_0 stay float (buddy_tpu/models/ncsnpp.py:128-136)
+        qcfg = (quantize_accum, quantize_bwd, quantize_static) if quantize_int8 else False
+        if qcfg:
+            L.quant_config(qcfg)
         if embedding_type not in ("fourier", "positional"):
             raise ValueError(embedding_type)
         self.act = act = L.get_act(nonlinearity)
@@ -77,7 +88,8 @@ class NCSNpp(nn.Module):
         def resblock(in_ch, out_ch=None, up=False, down=False):
             return L.ResnetBlockBigGANpp(act, in_ch, out_ch, up=up, down=down, dropout=dropout,
                                          skip_rescale=skip_rescale, init_scale=init_scale,
-                                         temb_dim=temb_dim)
+                                         temb_dim=temb_dim, qconv=qcfg,
+                                         fuse_up=fuse_resample)
 
         def attn(ch):
             return L.AttnBlockpp(ch, skip_rescale=skip_rescale, init_scale=init_scale)
@@ -255,11 +267,13 @@ _NET_KEYS = set(inspect.signature(NCSNpp).parameters)
 def NCSNppTime(stft=None, device=None, seed: int = 0, **kwargs) -> NCSNppTimeModule:
     """Config entry point (conf/network/ncsnpp.yaml ``_target_``): the
     network on ``device`` (the card unless ``device="cpu"``), randomly
-    initialized from ``seed``.  ``quantize_int8=True`` raises (K10 is not
-    ported); the other keys the port does not use (the int8 tuning keys,
-    which change nothing while int8 is off, and the JAX package's TPU
-    switches ``fuse_resample`` and ``remat``, which change no value) are
-    ignored."""
+    initialized from ``seed``.  ``quantize_int8`` runs the ResBlock convs
+    int8 (K10) with its tuning keys ``quantize_accum``, ``quantize_bwd`` and
+    ``quantize_static`` (calibrated scales: ``NetworkBundle.calibrate_quant``
+    first), which change nothing while it is off; ``fuse_resample`` folds
+    nearest-up2 into the up-ResBlocks' convs (K8).  Neither changes the
+    weights.  ``remat``, a memory switch of the JAX package's training that
+    changes no value, is not ported (ROADMAP.md §1, item 2) and is ignored."""
     if stft is None:
         raise ValueError("stft must be provided")
     net_kwargs = {k: (tuple(v) if isinstance(v, list) else v)

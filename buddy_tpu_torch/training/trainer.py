@@ -93,8 +93,12 @@ class Trainer:
             NoiseSource(torch.Generator().manual_seed(self.seed))
 
         # the module holds the trained weights; the EMA and Adam's moments
-        # cover every parameter, the frozen ones too (their moments stay 0)
+        # cover every parameter, the frozen ones too (their moments stay 0),
+        # and a static int8 network's calibrated scales, as the JAX
+        # package's optimizer and EMA cover its "quant" collection
         self.params = dict(self.module.named_parameters())
+        self.params.update((n, b) for n, b in self.module.named_buffers()
+                           if n.endswith("a_scale"))
         wrong = [n for n, p in self.params.items() if p.device.type != self.device.type]
         if wrong:
             raise ValueError(f"parameters {wrong[:3]}... are not on {self.device}")

@@ -6,7 +6,7 @@
 Phases, each printing one line:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
-2. building the CUDA kernels (K1, K2, K3, K4's loss pair, K5, K6, K7) from
+2. building the CUDA kernels (K1, K2, K3, K4's loss pair, K5, K6, K7, K10) from
    ``buddy_tpu_torch/csrc`` with nvcc, one process per source, all at once
    (K4's Triton compression compiles at its first launch, in phase 3);
 3. each kernel at the main path's shapes and dtypes (K1 at the U-Net's four
@@ -75,7 +75,27 @@ Phases, each printing one line:
    the checkpoint it wrote;
 7. the blind program and one train step at a small size on the card
    (kernels) and on the CPU (plain versions) with the same weights and
-   noise: the outputs must agree.
+   noise: the outputs must agree; also the blind program with
+   ``fuse_resample`` and static int8 (scales calibrated on the card and
+   copied to the CPU network);
+8. the serving profile's fused up-convolutions (K8) and the int8 U-Net
+   (K10, built with the rest in phase 2): K10 at every convolution shape
+   of the full-width int8 U-Net (bf16, B=8; its 3x3 and 1x1 convs, the
+   fused four-phase 3x3 and 1x1 of the up-blocks, the ``quantize_bwd``
+   adjoints), quantized activations, weights, int32 sums (against a
+   float64 convolution) and dequantized outputs bit for bit against the
+   plain versions and between two calls, each timed (device us after an L2
+   flush, wrapper, plain) beside its bound (int8 tensor cores at 1979 TOP/s
+   or bytes at 3.35 TB/s) and, as yardsticks, the bf16 cuDNN convolution of
+   the same shape and, for the fused kinds, upsample + bf16 conv; K8's float
+   route (one cuDNN transposed convolution) against upsample + conv at the
+   up-blocks (run after phase 3); then ``Tester.do_test()`` in blind mode at
+   full width, T=2, three times: the serving profile (``fuse_resample``),
+   int8 static after ``NetworkBundle.calibrate_quant`` (bench.py's recipe),
+   int8 dynamic with ``quantize_bwd``: sampler ms a step, K10's launches a
+   step (> 0), the fused convs' calls (> 0 in the serving run), five WAV
+   sets, and one profiled run each (device ms and launches a step, K10's
+   device ms, idle share) (run after phase 5).
 
 A JSON line of the kernels' results precedes the last line (K1's float32
 rows from phase 6, their launches those of its training loop; K2's check
@@ -1301,7 +1321,8 @@ _PORT_KERNELS = (
     "compress_kernel", "compress_bwd_kernel", "comp_loss_fwd_kernel", "comp_loss_bwd_kernel",  # K4
     "minphase_fwd_kernel", "minphase_bwd_kernel",                                         # K5
     "design_fwd_kernel", "design_bwd_kernel",                                             # K6
-    "wpe_solve_kernel", "wpe_solve_large_kernel")                                         # K7
+    "wpe_solve_kernel", "wpe_solve_large_kernel",                                         # K7
+    "qc_absmax_kernel", "qc_quantize_kernel", "qc_weight_kernel", "qc_conv_kernel")       # K10
 
 
 def device_busy_ms(prof) -> float:
@@ -2171,6 +2192,345 @@ def train_step_card_vs_cpu(dev) -> None:
         f"differences {worst['params']:.2e} / {worst['ema']:.2e}")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the serving profile's fused up-convolutions (K8) and the int8 U-Net (K10)
+# ---------------------------------------------------------------------------
+PEAK_INT8_OPS = 1979e12         # H100 SXM int8 tensor cores, dense
+INT8_STEPS = 2                  # diffusion steps of the serving and int8 runs
+K10_KERNELS = ("qc_absmax_kernel", "qc_quantize_kernel", "qc_weight_kernel", "qc_conv_kernel")
+SERVING = ["network.compute_dtype=bfloat16", "network.fuse_resample=true"]
+INT8_STATIC = SERVING + ["network.quantize_int8=true", "network.quantize_static=true"]
+INT8_DYNAMIC = SERVING + ["network.quantize_int8=true", "network.quantize_accum=int32",
+                          "network.quantize_bwd=true"]
+
+
+def int8_conv_shapes(dev) -> list:
+    """Every distinct convolution of the full-width int8 U-Net (nf=128,
+    ch_mult [1,2,2,2], bf16, fused up-blocks) at B=8 x 65536: (kind, C_in,
+    C_out, H, W, roles), recorded by forward hooks over one forward, with
+    the bwd_quant adjoints of the unfused kinds (C_in and C_out swapped)."""
+    import torch
+    from buddy_tpu_torch.config import compose, instantiate
+    from buddy_tpu_torch.models import layers as L
+    args = compose("conf_VCTK.yaml", INT8_DYNAMIC)
+    net = instantiate(args["network"], device=dev, seed=0).requires_grad_(False)
+    seen = {}
+
+    def hook(m, inp, out):
+        x = inp[0]
+        seen.setdefault((m.kind, x.shape[1], m.weight.shape[0], x.shape[2], x.shape[3]),
+                        set()).add("forward")
+
+    hooks = [m.register_forward_hook(hook) for m in net.modules()
+             if isinstance(m, (L.QConv, L.FusedUpConv))]
+    with torch.no_grad():
+        net(torch.randn((8, 1, 65536), device=dev) * 0.05, torch.zeros(8, device=dev))
+    for h in hooks:
+        h.remove()
+    for (kind, ci, co, h, w) in list(seen):
+        if not kind.startswith("up"):
+            seen.setdefault((kind, co, ci, h, w), set()).add("adjoint")
+    del net
+    torch.cuda.empty_cache()
+    return [k + (sorted(r),) for k, r in sorted(seen.items(), key=lambda kv: (-kv[0][3], kv[0]))]
+
+
+def k10_checks(dev) -> dict:
+    """K10 at every convolution shape of the int8 U-Net, bf16, B=8: the
+    quantized activations (dynamic and per channel), the weights (plain and
+    folded), the int32 sums (against the float64 plain version) and the
+    dequantized output, each bit for bit against the plain version, and two
+    calls bit for bit; then device us a launch after an L2 flush, the bound,
+    the wrapper's and the plain version's ms, and as yardsticks the bf16
+    cuDNN convolution of the same shape (a bf16 conv, not the same
+    function: PyTorch has no int8 convolution on CUDA) and, for the fused
+    kinds, the unfused upsample + bf16 conv; K8's float route at the
+    up-block shapes against the unfused pair."""
+    import torch
+    import torch.nn.functional as F
+    from buddy_tpu_torch.models import layers as L
+    from buddy_tpu_torch.ops import qconv as Q, resample as R
+    shapes = int8_conv_shapes(dev)
+    gen = torch.Generator().manual_seed(10)
+    rows, k8_rows, rep = [], [], None
+    cl = torch.channels_last
+    for kind, cin, cout, h, w, roles in shapes:
+        k = 3 if kind.endswith("3x3") else 1
+        x = torch.randn((8, cin, h, w), generator=gen).to(dev, torch.bfloat16).contiguous(
+            memory_format=cl)
+        wt = (torch.randn((cout, cin, k, k), generator=gen) / (cin * k * k) ** 0.5).to(dev)
+        b = (torch.randn(cout, generator=gen) * 0.1).to(dev)
+        wd = Q._derived(wt, kind).contiguous()
+        what = f"K10 {kind} {cin}->{cout} at {h}x{w}"
+        with torch.no_grad():
+            xq, sx = Q.quantize_act(x)
+            xq0, sx0 = Q.quantize_act_plain(x)
+            if not (torch.equal(xq, xq0) and torch.equal(sx, sx0)):
+                raise AssertionError(f"{what}: dynamic activation quantization differs")
+            sxc = Q.static_scale(x.abs().amax(dim=(0, 2, 3)).float() * 0.8)
+            xqc = Q.quantize_act(x, sxc)[0]
+            if not torch.equal(xqc, Q.quantize_act_plain(x, sxc)[0]):
+                raise AssertionError(f"{what}: per-channel activation quantization differs")
+            wq, sw = Q.quantize_weight(wd)
+            for got, want in zip(Q.quantize_weight(wd) + Q.quantize_weight(wd, sxc),
+                                 Q.quantize_weight_plain(wd) + Q.quantize_weight_plain(wd, sxc)):
+                if not torch.equal(got, want):
+                    raise AssertionError(f"{what}: weight quantization differs")
+            acc = Q.int8_conv(xq, wq, sw, kind, raw=True)
+            acc0 = Q.int8_conv_plain(xq, wq, kind)
+            if not torch.equal(acc, acc0):
+                raise AssertionError(f"{what}: int32 sums differ from the float64 plain version "
+                                     f"({int((acc != acc0).sum())} elements)")
+            call = lambda: Q.int8_conv(xq, wq, sw, kind, out_dtype=torch.bfloat16, s_x=sx, bias=b)
+            y = call()
+            y0 = Q.dequant_plain(acc0, torch.bfloat16, sx * sw, b)
+            if not torch.equal(y.permute(0, 2, 3, 1), y0) or not torch.equal(y, call()):
+                raise AssertionError(f"{what}: dequantized output differs (or two calls differ)")
+            del acc, acc0, y0
+            us = device_us_per_launch(call, ["qc_conv_kernel"], reps=5)["qc_conv_kernel"]
+            ms = cuda_ms(call, reps=5, warmup=1)
+            plain_ms = cuda_ms(lambda: Q.dequant_plain(Q.int8_conv_plain(xq, wq, kind),
+                                                       torch.bfloat16, sx * sw, b),
+                               reps=1, warmup=0)
+            q_ms = cuda_ms(lambda: Q.quantize_act(x), reps=5, warmup=1)
+            wb, bb = wt.to(torch.bfloat16), b.to(torch.bfloat16)
+            if kind.startswith("up"):
+                fused = R.up2_conv3x3 if k == 3 else R.up2_conv1x1
+                yard = cuda_ms(lambda: fused(x, wt, b), reps=5, warmup=1)
+                naive = cuda_ms(lambda: F.conv2d(L.naive_upsample_2d(x), wb, bb, padding=k // 2),
+                                reps=5, warmup=1)
+                yf, yn = fused(x, wt, b).float(), F.conv2d(L.naive_upsample_2d(x), wb, bb,
+                                                           padding=k // 2).float()
+                err, tol = max_err(yf, yn), 2.0 ** -6 * float(yn.abs().max())
+                check(f"K8 float route {kind} {cin}->{cout} at {h}x{w} vs upsample + conv",
+                      err, tol)
+                k8_rows.append([kind, cin, cout, h, w, err, tol, round(yard, 4), round(naive, 4)])
+                del yf, yn
+            else:
+                yard = cuda_ms(lambda: F.conv2d(x, wb, bb, padding=k // 2), reps=5, warmup=1)
+                naive = None
+        up = kind.startswith("up")
+        macs = 8 * h * w * cin * cout * {"3x3": 9, "1x1": 1, "up3x3": 16, "up1x1": 1}[kind]
+        n_out = 8 * h * w * cout * (4 if up else 1)
+        bound = bound_ms(8 * h * w * cin + wq.numel() + 2 * n_out + 8 * cout, 2.0 * macs,
+                         PEAK_INT8_OPS)
+        qbound = bound_ms(8 * h * w * cin * 3, 0.0)
+        row = [kind, cin, cout, h, w, "+".join(roles), round(us, 2), round(bound[0] * 1e3, 2),
+               bound[1], round(ms, 4), round(plain_ms, 3), round(q_ms, 4), round(yard, 4),
+               None if naive is None else round(naive, 4)]
+        rows.append(row)
+        log("K10 " + json.dumps(row))
+        if rep is None and kind == "3x3" and cin == 128 and cout == 128 and h == 256:
+            rep = dict(us=us, ms=ms, plain_ms=plain_ms, bound=bound, yard=yard, q_ms=q_ms,
+                       qbound=qbound, shape=[8, cin, h, w, cout], x=x, wq=wq, sw=sw, wd=wd)
+        del x, xq, xq0, xqc, wq, wd
+        torch.cuda.empty_cache()
+    # the representative shape (the top level's 3x3): the activation and
+    # weight quantization's own device times
+    with torch.no_grad():
+        x, wd = rep["x"], rep["wd"]
+        q_us = device_us_per_launch(lambda: Q.quantize_act(x),
+                                    ["qc_absmax_kernel", "qc_quantize_kernel"], reps=5)
+        w_us = device_us_per_launch(lambda: Q.quantize_weight(wd), ["qc_weight_kernel"], reps=5)
+        wq_ms = cuda_ms(lambda: Q.quantize_weight(wd), reps=5)
+        wq_plain = cuda_ms(lambda: Q.quantize_weight_plain(wd), reps=5)
+        qa_plain = cuda_ms(lambda: Q.quantize_act_plain(x), reps=3)
+    log(f"K10 at {len(rows)} convolution shapes of the int8 U-Net (B=8, bf16): activations, "
+        f"weights, int32 sums and dequantized outputs bit for bit against the plain versions, "
+        f"two calls bit for bit; rows [kind, C_in, C_out, H, W, roles, device us cold, bound us, "
+        f"bound by, wrapper ms, plain ms, quantize_act ms, yardstick ms (bf16 cuDNN conv; fused "
+        f"kinds: K8's float route), unfused upsample + bf16 conv ms]")
+    log("K8 float route (one cuDNN transposed conv with the derived kernel) against upsample + "
+        "bf16 conv at the up-blocks [kind, C_in, C_out, H, W, max abs err, tolerance 2^-6 of the "
+        "peak, fused ms, unfused ms]: " + json.dumps(k8_rows))
+    shape = rep["shape"]
+    entries = {
+        "int8_conv": dict(err=0.0, tol=0.0, times=(rep["ms"], rep["plain_ms"], None),
+                          bound=rep["bound"], shape=shape,
+                          extra={"device_us": rep["us"], "yardstick_bf16_conv_ms": rep["yard"],
+                                 "yardstick": "a bf16 cuDNN conv of the same shape, not the "
+                                              "same function", "shapes": rows}),
+        "quantize_act": dict(err=0.0, tol=0.0, times=(rep["q_ms"], qa_plain, None),
+                             bound=rep["qbound"], shape=shape[:4],
+                             extra={"device_us": q_us}),
+        "quantize_weight": dict(err=0.0, tol=0.0, times=(wq_ms, wq_plain, None),
+                                bound=bound_ms(5 * wd.numel(), 0.0), shape=list(wd.shape),
+                                extra={"device_us": w_us}),
+    }
+    del rep
+    torch.cuda.empty_cache()
+    return entries
+
+
+def profile_run(run, n_steps: int, names, label: str) -> dict:
+    """One run under torch.profiler: device ms a step of the kernels named
+    (by function name) and of all kernels, device launches a step, and the
+    device's idle share of the wall; the per-kernel table goes to
+    chiprun_out/profile_<label>.txt."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = [(kernel_name(e.key), e.self_device_time_total / 1e3, e.count)
+            for e in prof.key_averages()
+            if e.self_device_time_total > 0 and e.device_type == torch.autograd.DeviceType.CUDA]
+    with open(os.path.join(OUT_DIR, f"profile_{label}.txt"), "w") as f:
+        for name, ms, count in sorted(rows, key=lambda r: -r[1]):
+            f.write(f"{ms:12.3f} ms {count:8d}x  {name}\n")
+    ours = {k: [0.0, 0] for k in names}
+    for name, ms, count in rows:
+        if name in ours:
+            ours[name][0] += ms / n_steps
+            ours[name][1] += count
+    busy = device_busy_ms(prof)
+    return {"device_ms_per_step": round(sum(r[1] for r in rows) / n_steps, 3),
+            "launches_per_step": round(sum(r[2] for r in rows) / n_steps, 1),
+            "idle_share": round(1 - busy / wall, 4),
+            "kernels_ms_per_step": {k: round(v[0], 3) for k, v in ours.items()},
+            "kernels_launches": {k: v[1] for k, v in ours.items()}}
+
+
+def calibration_inputs(dev, edm, seed: int = 7):
+    """bench.py's calibration recipe: a 0.05-std signal, 8 sigmas on a
+    geometric grid from sigma_max to sigma_min, the network's inputs cin * x
+    and cnoise, from a seed."""
+    import numpy as np
+    import torch
+    gen = torch.Generator().manual_seed(seed)
+    clean = torch.randn((1, 1, 65536), generator=gen) * 0.05
+    xs, cns = [], []
+    for s in np.geomspace(edm.sigma_max, edm.sigma_min, 8):
+        sig = torch.full((1,), float(s))
+        xn = clean + float(s) * torch.randn(clean.shape, generator=gen)
+        xs.append((edm.cin(sig)[:, None, None] * xn).to(dev))
+        cns.append(edm.cnoise(sig).to(dev))
+    return xs, cns
+
+
+def serving_and_int8_runs(dev) -> dict:
+    """``Tester.do_test()`` in blind mode at full width, B=8 x 65536, full
+    guidance, 10 operator updates a step, T=2: the serving profile
+    (``fuse_resample``), then int8 static after ``calibrate_quant``, then
+    int8 dynamic with int32 sums, ``quantize_bwd`` and fused up-blocks.
+    Each: a network built anew (its convs quantize their weights in the
+    run), the counts set to 0 just before, read just after, five WAV sets
+    of 8 finite files, sampler ms a step; then one more run profiled."""
+    import torch
+    from buddy_tpu_torch.models import layers as L
+    from buddy_tpu_torch.ops import qconv as Q
+    data = os.path.join(OUT_DIR, "smoke_data")
+    common = [f"tester.sampling_params.T={INT8_STEPS}",
+              "tester.posterior_sampling.guidance_jacobian=full",
+              "tester.posterior_sampling.blind_hp.op_updates_per_step=10",
+              "tester.batched.use=True", "tester.batched.batch_size=8"]
+    k10 = {"int8_conv": Q.int8_conv, "quantize_act": Q.quantize_act,
+           "quantize_weight": Q.quantize_weight}
+    out = {}
+    for label, over in (("serving", SERVING), ("int8_static", INT8_STATIC),
+                        ("int8_dynamic", INT8_DYNAMIC)):
+        t0 = time.perf_counter()
+        args, net, tester = build_tester(dev, "blind_dereverberation_BUDDy", data, label,
+                                         common + over)
+        if label == "int8_static":
+            net.calibrate_quant(*calibration_inputs(dev, tester.diff_params))
+            scales = [b for n, b in net.module.named_buffers() if n.endswith("a_scale")]
+            if not scales or not all(bool((b > 0).any()) for b in scales):
+                raise AssertionError("calibrate_quant left a scale at zero")
+        sampler_s = []
+        inner = tester.sampler.predict_conditional_batched
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            r = inner(*a, **k)
+            torch.cuda.synchronize()
+            sampler_s.append(time.perf_counter() - t)
+            return r
+
+        tester.sampler.predict_conditional_batched = timed
+
+        def run():
+            shutil.rmtree(os.path.join(args["model_dir"], label), ignore_errors=True)
+            tester.do_test()
+            torch.cuda.synchronize()
+
+        for w in k10.values():
+            w.launches = 0
+        L.FusedUpConv.float_calls = 0
+        run()
+        launches = {k: w.launches for k, w in k10.items()}
+        fused = L.FusedUpConv.float_calls
+        check_outputs(tester, "blind_dereverberation", 8, 65536, blind=True)
+        if label == "serving" and fused == 0:
+            raise AssertionError("serving profile: no fused up-convolution ran")
+        if label != "serving":
+            missing = [k for k, v in launches.items() if v == 0]
+            if missing:
+                raise AssertionError(f"{label}: K10 wrappers not launched: {missing}")
+        prof = profile_run(run, INT8_STEPS, K10_KERNELS, label)
+        out[label] = {"sampler_ms_per_step": round(sampler_s[0] / INT8_STEPS * 1e3, 1),
+                      "k10_launches": launches,
+                      "k10_launches_per_step": {k: round(v / INT8_STEPS, 1)
+                                                for k, v in launches.items()},
+                      "fused_float_calls": fused, **prof}
+        log(f"{label} (Tester.do_test(), blind, B=8 x 65536, full width, bf16 body, "
+            f"{' '.join(o.split('=')[0].split('.')[-1] + '=' + o.split('=')[1] for o in over[1:])},"
+            f" T={INT8_STEPS}, full guidance, 10 updates/step): 5 directories x 8 finite WAVs; "
+            f"{time.perf_counter() - t0:.1f} s in all; " + json.dumps(out[label]))
+        del net, tester
+        torch.cuda.empty_cache()
+    return out
+
+
+def small_reference_int8(dev) -> None:
+    """The small blind program with ``fuse_resample`` and static int8, card
+    (kernels) against CPU (plain versions): the same weights (seed), the
+    scales calibrated on the card and copied to the CPU network, the same
+    noise; float32 body."""
+    import torch
+    from buddy_tpu_torch.sampling.euler_heun import NoiseSource
+    overrides = ["network.nf=16", "network.ch_mult=[1,2,2,2]", "tester.sampling_params.T=2",
+                 "tester.posterior_sampling.blind_hp.op_updates_per_step=2",
+                 "tester.posterior_sampling.warm_initialization.mode=reverb_scaled",
+                 "network.fuse_resample=true", "network.quantize_int8=true",
+                 "network.quantize_static=true"]
+    ys = torch.from_numpy(load_wavs("degraded", 2, 16384))
+    outs, scales = [], None
+    for d in (dev, torch.device("cpu")):
+        sampler, op = build_program(overrides, d)
+        bundle = sampler.model
+        if scales is None:
+            xs, cns = calibration_inputs(d, sampler.diff_params)
+            xs = [x[..., :16384] for x in xs]
+            bundle.calibrate_quant(xs, cns)
+            scales = {n: b.detach().cpu().clone() for n, b in bundle.module.named_buffers()
+                      if n.endswith("a_scale")}
+        else:
+            with torch.no_grad():
+                for n, b in bundle.module.named_buffers():
+                    if n.endswith("a_scale"):
+                        b.copy_(scales[n])
+        params, H = op.reset_batched(2, noise=torch.randn(
+            (2, op.length_rir), generator=torch.Generator().manual_seed(4)))
+        out = sampler.predict_conditional_batched(
+            ys, op, blind=True, noise=NoiseSource(torch.Generator().manual_seed(5)),
+            op_params_batch=params, H_batch=H)
+        outs.append(out.detach().cpu())
+    # the int8 kernels are bit for bit with the plain versions on equal
+    # inputs; the float layers (cuDNN against the CPU's convolutions) differ
+    # in their last bits and flip a few static roundings, which the
+    # program's guidance carries (tests/test_torch_int8.py: 7.5e-3 of the
+    # peak for one network between the two packages): 3e-2 of the peak
+    err = max_err(outs[0], outs[1])
+    tol = 3e-2 * float(outs[1].abs().max())
+    check("small blind program, fused + static int8, card vs CPU", err, tol)
+    log(f"small blind program with fuse_resample and static int8 (B=2, 16384 samples, T=2, "
+        f"nf=16): card kernels vs CPU plain versions, max abs error {err:.3e} (tolerance "
+        f"{tol:.3e}, {err / float(outs[1].abs().max()):.2e} of the peak)")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2251,6 +2611,10 @@ def main() -> int:
                               "buddy_tpu/operators/subband.py:341"),
         "wpe_solve": ("cuda", "buddy_tpu_torch/csrc/wpe_solve.cu",
                       "buddy_tpu/sampling/wpe.py:61"),
+        "int8_conv": ("cuda", "buddy_tpu_torch/csrc/qconv.cu", "buddy_tpu/ops/qconv.py:97"),
+        "quantize_act": ("cuda", "buddy_tpu_torch/csrc/qconv.cu", "buddy_tpu/ops/qconv.py:65"),
+        "quantize_weight": ("cuda", "buddy_tpu_torch/csrc/qconv.cu",
+                            "buddy_tpu/ops/qconv.py:81"),
     }
     t0 = time.perf_counter()
     checks = kernel_checks(dev)
@@ -2258,6 +2622,9 @@ def main() -> int:
     lengths = new_lengths(dev)
     check_digests(dev)
     log(f"kernel checks done in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    checks.update(k10_checks(dev))
+    log(f"K10 and K8 checks done in {time.perf_counter() - t0:.1f} s")
     checks["stft_analysis"]["extra"]["chirp_route"] = {
         n: {"device_us": v["device_us_cold"][0], "err": v["err"][0]}
         for n, v in lengths["stft"].items()}
@@ -2271,10 +2638,18 @@ def main() -> int:
 
     launches, _ = main_path(dev, wrappers)
     other_modes(dev)
+    runs = serving_and_int8_runs(dev)
     train = training_path(dev, wrappers)
     training_clis(dev)
     small_reference(dev)
+    small_reference_int8(dev)
     train_step_card_vs_cpu(dev)
+
+    # K10's launches are those of the int8 dynamic run (quantize_bwd, fused
+    # up-blocks: every wrapper), the static run's beside them
+    for name in ("int8_conv", "quantize_act", "quantize_weight"):
+        launches[name] = runs["int8_dynamic"]["k10_launches"][name]
+        checks[name]["extra"]["launches_int8_static"] = runs["int8_static"]["k10_launches"][name]
 
     # K1's float32 rows come from the training path, its launches from the
     # training loop's run; K2 also reports its launches a train step

@@ -1,5 +1,6 @@
-// CPU emulation of the CUDA built-ins that csrc/wpe_solve.cu uses, for g++
-// (C++20): one std::thread per CUDA thread, all blocks of a grid at once, a
+// CPU emulation of the CUDA built-ins that csrc/wpe_solve.cu and csrc/qconv.cu
+// use, for g++ (C++20): one std::thread per CUDA thread, all blocks of a grid
+// (up to three dimensions) at once, a
 // std::barrier per block for __syncthreads and per warp for the warp-level
 // operations (shuffles, reductions, ballots exchange values through a slot per
 // lane), a generation counter per named barrier for bar.arrive / bar.sync.
@@ -94,8 +95,11 @@ inline void named_bar(int id, int n, bool wait) {
   }
   if (wait) b.cv.wait(lk, [&] { return b.gen != gen; });
 }
+// one block at a time when set (for kernels whose blocks never wait on each
+// other: fewer threads alive at once)
+inline bool serial_blocks = false;
 inline void launch(dim3 g, dim3 b, size_t smem_bytes, std::function<void()> body) {
-  const unsigned nb = g.x, nt = b.x;
+  const unsigned nb = g.x * g.y * g.z, nt = b.x;
   std::vector<std::unique_ptr<Block>> blocks;
   for (unsigned i = 0; i < nb; ++i) {
     auto bl = std::make_unique<Block>();
@@ -107,17 +111,21 @@ inline void launch(dim3 g, dim3 b, size_t smem_bytes, std::function<void()> body
     blocks.push_back(std::move(bl));
   }
   std::vector<std::thread> ts;
-  for (unsigned i = 0; i < nb; ++i)
+  for (unsigned i = 0; i < nb; ++i) {
     for (unsigned t = 0; t < nt; ++t)
       ts.emplace_back([&, i, t] {
         blk = blocks[i].get();
         threadIdx = {t, 0, 0};
-        blockIdx = {i, 0, 0};
+        blockIdx = {i % g.x, (i / g.x) % g.y, i / (g.x * g.y)};
         blockDim = {nt, 1, 1};
-        gridDim = {nb, 1, 1};
+        gridDim = {g.x, g.y, g.z};
         body();
       });
-  for (auto& t : ts) t.join();
+    if (serial_blocks || i + 1 == nb) {
+      for (auto& t : ts) t.join();
+      ts.clear();
+    }
+  }
 }
 }  // namespace emu
 

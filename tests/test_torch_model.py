@@ -98,20 +98,48 @@ def test_forward_positional_no_pyramids():
 
 
 def test_quantize_int8_raises_and_int8_keys_are_ignored_when_off():
-    """``network.quantize_int8=true`` raises until the int8 convolutions are
-    ported (a float network would be another result than the JAX
-    package's); with int8 off, the int8 tuning keys and the TPU switches
-    build the same network, weight for weight, as without them."""
+    """``network.quantize_int8=true`` builds and runs (the int8 convolutions
+    are ported; it no longer raises): the same weights as the float network
+    and a finite output of the input's shape.  With int8 off, the int8
+    tuning keys and ``fuse_resample`` build the same network, weight for
+    weight, as without them."""
     from test_torch_common import TINY_NET, torch_compose
     from buddy_tpu_torch.config import instantiate
-    with pytest.raises(NotImplementedError, match="K10"):
-        instantiate(torch_compose(TINY_NET + ["network.quantize_int8=true"])["network"],
-                    device="cpu")
+    plain = instantiate(torch_compose(TINY_NET)["network"], device="cpu", seed=3)
+    int8 = instantiate(torch_compose(TINY_NET + ["network.quantize_int8=true"])["network"],
+                       device="cpu", seed=3)
+    a, b = plain.state_dict(), int8.state_dict()
+    assert a.keys() == b.keys()
+    assert all(torch.equal(a[k], b[k]) for k in a)
+    x, cnoise = _inputs(5)
+    with torch.no_grad():
+        y = int8(torch.from_numpy(x), torch.from_numpy(cnoise))
+    assert y.shape == x.shape and torch.isfinite(y).all()
     keys = ["network.quantize_int8=false", "network.quantize_accum=bfloat16",
             "network.quantize_bwd=true", "network.quantize_static=true",
             "network.fuse_resample=true"]
-    plain = instantiate(torch_compose(TINY_NET)["network"], device="cpu", seed=3)
     with_keys = instantiate(torch_compose(TINY_NET + keys)["network"], device="cpu", seed=3)
-    a, b = plain.state_dict(), with_keys.state_dict()
+    b = with_keys.state_dict()
     assert a.keys() == b.keys()
     assert all(torch.equal(a[k], b[k]) for k in a)
+
+
+def test_dropout_is_the_identity(nets):
+    """``network.dropout=0.1`` builds (it used to raise) and computes what
+    ``dropout=0`` computes, as the JAX package's ResBlocks do (their
+    nn.Dropout is deterministic unless a caller asks otherwise, and none
+    does): the same output bit for bit, in eval and in train mode."""
+    from test_torch_common import TINY_NET, torch_compose
+    from buddy_tpu_torch.config import instantiate
+    _, tree, tnet = nets
+    drop = instantiate(torch_compose(TINY_NET + ["network.dropout=0.1"])["network"],
+                       device="cpu")
+    from buddy_tpu_torch.models import NetworkBundle
+    dnet = NetworkBundle(drop)
+    dnet.load_jax_params(tree)
+    x, cnoise = _inputs(6)
+    with torch.no_grad():
+        ref = tnet(torch.from_numpy(x), torch.from_numpy(cnoise))
+        for train in (False, True):
+            drop.train(train)
+            assert torch.equal(dnet(torch.from_numpy(x), torch.from_numpy(cnoise)), ref)
