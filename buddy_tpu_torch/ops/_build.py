@@ -22,7 +22,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = ("stft", "subband_conv", "groupnorm", "filter_design", "wpe_solve", "minphase",
-           "spec_loss", "qconv")
+           "spec_loss", "qconv", "qconv_sm90")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 

@@ -1,5 +1,6 @@
 """int8 convolution with straight-through gradients, and kernel K10 (CUDA,
-``csrc/qconv.cu``): the counterpart of ``buddy_tpu/ops/qconv.py``.
+``csrc/qconv.cu`` and ``csrc/qconv_sm90.cu``): the counterpart of
+``buddy_tpu/ops/qconv.py``.
 
 Scheme (the JAX package's): activations quantized symmetrically to
 [-127, 127] with one scale a tensor, computed per call from max|x|
@@ -38,11 +39,15 @@ under jit on the CPU, bit for bit (tests/test_torch_int8.py):
   float32.
 
 CPU tensors take the plain versions below; CUDA tensors launch the kernels
-or raise.  Each wrapper counts its C calls in ``.launches``.  Quantized
-weights depend on the weight (and on the calibrated scales) only, so a
-conv module computes them once per version of those tensors and keeps
-them (``cached``), as the JAX package's weight quantization is hoisted out
-of the sampling loop.
+or raise.  The convolution has two routes on the card, chosen by the shapes
+alone (``conv_route``): C_in % 128 == 0 and C_out % 128 == 0 (every conv of
+the shipped int8 U-Net) go to ``qc_conv_sm90_kernel`` (a TMA halo tile
+feeding wgmma, ``halo_plan``), the rest to ``qc_conv_kernel`` (mma.sync).
+Each launcher counts its C calls in ``.launches`` (``int8_conv_sm90`` and
+``int8_conv_mma`` for the convolution's two routes).  Quantized weights depend on the weight (and on the
+calibrated scales) only, so a conv module computes them once per version
+of those tensors and keeps them (``cached``), as the JAX package's weight
+quantization is hoisted out of the sampling loop.
 """
 
 from __future__ import annotations
@@ -50,6 +55,7 @@ from __future__ import annotations
 import ctypes
 import math
 import weakref
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -70,6 +76,10 @@ _SIGNATURES = {
     "qc_weight": [_P, _P, _P, _P, _I, _I, _I, _P],
     "qc_conv": [_P] * 6 + [_I] * 9 + [_P, _I, _I, _P],
 }
+_SM90_SIGNATURES = {"qc_conv_sm90": [_P] * 6 + [_I] * 9 + [_P, _I, _I, _P]}
+ROUTES = ("sm90", "mma")
+SM90_TILE_ROWS = 8      # the tile of qc_conv_sm90_kernel: 8 rows x 16 columns
+SM90_TILE_COLS = 16
 
 
 # ---------------------------------------------------------------------------
@@ -181,6 +191,10 @@ def _lib():
     return _build.load("qconv", _SIGNATURES)
 
 
+def _sm90_lib():
+    return _build.load("qconv_sm90", _SM90_SIGNATURES)
+
+
 def _check_float(x: torch.Tensor, what: str) -> None:
     if x.device.type != "cuda" or x.dtype not in (torch.float32, torch.bfloat16) or x.dim() != 4:
         raise ValueError(f"{what}: expected a 4-D float32/bfloat16 CUDA tensor, "
@@ -264,15 +278,73 @@ def tap_table(kind: str) -> tuple[int, int, bool, list]:
     raise ValueError(f"unknown convolution kind {kind!r}")
 
 
+class HaloPlan(NamedTuple):
+    """What ``qc_conv_sm90_kernel`` loads and reads for a kind: a CTA's tile
+    of ``rows`` x ``cols`` pixels of the input grid, the box one TMA load
+    brings for it (origin ``lo_y``, ``lo_x`` relative to the tile's, size
+    ``box_h`` x ``box_w``: the halo the taps reach, none for the 1x1 kinds),
+    and per phase and tap (the pixel offset of the tap's shifted tile in the
+    box, row-major; the packed weight index)."""
+    rows: int
+    cols: int
+    lo_y: int
+    lo_x: int
+    box_h: int
+    box_w: int
+    taps: list
+
+    def table(self) -> list:
+        """The plan as the C entry takes it."""
+        head = [self.rows, self.lo_y, self.lo_x, self.box_h, self.box_w]
+        return head + [v for tap in self.taps for v in tap]
+
+
+def halo_plan(kind: str) -> HaloPlan:
+    """The halo-relative tap plan of ``tap_table(kind)`` for the kernel's
+    tile: the box spans every phase's taps, so the four phases of the fused
+    3x3 read one box at their own offsets."""
+    _, _, _, taps = tap_table(kind)
+    lo_y, hi_y = min(t[0] for t in taps), max(t[0] for t in taps)
+    lo_x, hi_x = min(t[1] for t in taps), max(t[1] for t in taps)
+    rows, cols = SM90_TILE_ROWS, SM90_TILE_COLS
+    box_h, box_w = rows + hi_y - lo_y, cols + hi_x - lo_x
+    return HaloPlan(rows, cols, lo_y, lo_x, box_h, box_w,
+                    [((dy - lo_y) * box_w + dx - lo_x, t) for dy, dx, t in taps])
+
+
+def conv_route(c_in: int, c_out: int, route: str | None = None) -> str:
+    """The kernel a CUDA convolution of C_in -> C_out runs on: the one
+    ``route`` names, else "sm90" (``qc_conv_sm90_kernel``) where C_in and
+    C_out are whole 128-channel chunks (its TMA box and k-blocks, its CTA's
+    N) and "mma" elsewhere.  The shape alone decides; "sm90" on a shape it
+    does not take raises."""
+    sm90 = c_in % 128 == 0 and c_out % 128 == 0
+    if route is None:
+        return "sm90" if sm90 else "mma"
+    if route not in ROUTES:
+        raise ValueError(f"int8_conv: route must be None or one of {ROUTES}, got {route!r}")
+    if route == "sm90" and not sm90:
+        raise ValueError(f"int8_conv: the sm90 route takes C_in and C_out in multiples of 128, "
+                         f"got {c_in} -> {c_out}")
+    return route
+
+
 def int8_conv(x_q: torch.Tensor, w_q: torch.Tensor, s_w: torch.Tensor, kind: str, *,
               out_dtype: torch.dtype = torch.bfloat16,
               s_x: torch.Tensor | None = None, bias: torch.Tensor | None = None,
-              raw: bool = False) -> torch.Tensor:
+              raw: bool = False, route: str | None = None) -> torch.Tensor:
     """K10's convolution: x_q (B, H, W, C_in) int8, w_q (kh * kw, C_out,
     C_in) int8 -> y (B, C_out, Ho, Wo) in ``out_dtype`` (channels_last
     memory), dequantized with s_x * s_w (or s_w alone when ``s_x`` is None)
-    and ``bias``; with ``raw`` the exact int32 sums (B, Ho, Wo, C_out)."""
+    and ``bias``; with ``raw`` the exact int32 sums (B, Ho, Wo, C_out).
+    ``route``: None takes the kernel ``conv_route`` picks for the shape
+    (``qc_conv_sm90_kernel`` or ``qc_conv_kernel``); "sm90" or "mma"
+    forces one (a CUDA tensor only; "sm90" raises on a shape it does not
+    take)."""
     if x_q.device.type == "cpu":
+        if route is not None:
+            raise ValueError(f"int8_conv: route {route!r} runs a CUDA kernel; CPU tensors take "
+                             "the plain version")
         acc = int8_conv_plain(x_q, w_q, kind)
         if raw:
             return acc
@@ -294,6 +366,7 @@ def int8_conv(x_q: torch.Tensor, w_q: torch.Tensor, s_w: torch.Tensor, kind: str
         raise ValueError(f"int8_conv: s_w {tuple(s_w.shape)}, bias "
                          f"{None if bias is None else tuple(bias.shape)} and s_x for {Cout} "
                          "output channels and one activation scale")
+    route = conv_route(Cin, Cout, route)
     up = kind.startswith("up")
     Ho, Wo = (2 * H, 2 * W) if up else (H, W)
     x_q, w_q = x_q.contiguous(), w_q.contiguous()
@@ -302,22 +375,41 @@ def int8_conv(x_q: torch.Tensor, w_q: torch.Tensor, s_w: torch.Tensor, kind: str
     sw = s_w.float().contiguous()
     sx = None if s_x is None else s_x.float().reshape(()).contiguous()
     b = None if bias is None else bias.float().contiguous()
-    table = (ctypes.c_int * (3 * len(taps)))(*[v for t in taps for v in t])
-    mode = 0 if raw else (1 if out_dtype == torch.bfloat16 else 2)
-    round_bf16 = int(out_dtype == torch.bfloat16)
     opt = lambda t: None if t is None else _build.ptr(t)
-    err = _lib().qc_conv(_build.ptr(x_q), _build.ptr(w_q), _build.ptr(y), _build.ptr(sw), opt(sx),
-                         opt(b), B, H, W, Cin, Cout, int(up), int(replicate), phases, ntaps,
-                         ctypes.cast(table, ctypes.c_void_p), mode, round_bf16,
-                         _build.stream(x_q.device))
-    _build.check(err, "qc_conv")
-    int8_conv.launches += 1
+    args = (_build.ptr(x_q), _build.ptr(w_q), _build.ptr(y), _build.ptr(sw), opt(sx), opt(b),
+            B, H, W, Cin, Cout, int(up), int(replicate), phases, ntaps)
+    mode = 0 if raw else (1 if out_dtype == torch.bfloat16 else 2)
+    tail = (mode, int(out_dtype == torch.bfloat16), _build.stream(x_q.device))
+    if route == "sm90":
+        int8_conv_sm90(args, halo_plan(kind).table(), tail)
+    else:
+        int8_conv_mma(args, [v for t in taps for v in t], tail)
     return y if raw else y.permute(0, 3, 1, 2)
+
+
+def int8_conv_sm90(args, plan, tail) -> None:
+    """One launch of ``qc_conv_sm90_kernel`` (``csrc/qconv_sm90.cu``) with
+    ``int8_conv``'s arguments and a ``halo_plan`` table."""
+    table = (ctypes.c_int * len(plan))(*plan)
+    err = _sm90_lib().qc_conv_sm90(
+        *args, ctypes.cast(table, ctypes.c_void_p), *tail)
+    _build.check(err, "qc_conv_sm90")
+    int8_conv_sm90.launches += 1
+
+
+def int8_conv_mma(args, taps, tail) -> None:
+    """One launch of ``qc_conv_kernel`` (``csrc/qconv.cu``) with
+    ``int8_conv``'s arguments and a ``tap_table``."""
+    table = (ctypes.c_int * len(taps))(*taps)
+    err = _lib().qc_conv(*args, ctypes.cast(table, ctypes.c_void_p), *tail)
+    _build.check(err, "qc_conv")
+    int8_conv_mma.launches += 1
 
 
 quantize_act.launches = 0
 quantize_weight.launches = 0
-int8_conv.launches = 0
+int8_conv_sm90.launches = 0
+int8_conv_mma.launches = 0
 
 
 # ---------------------------------------------------------------------------

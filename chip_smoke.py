@@ -77,25 +77,35 @@ Phases, each printing one line:
    (kernels) and on the CPU (plain versions) with the same weights and
    noise: the outputs must agree; also the blind program with
    ``fuse_resample`` and static int8 (scales calibrated on the card and
-   copied to the CPU network);
+   copied to the CPU network; its 16-64 channels run K10's mma route, whose
+   launches in the card's sampler call are counted and must be > 0, the
+   sm90 route's 0), then K10 at each distinct conv shape of that run
+   through the route ``int8_conv`` picks there: int32 sums, float32 and
+   bf16 outputs bit for bit against the plain versions;
 8. the serving profile's fused up-convolutions (K8) and the int8 U-Net
    (K10, built with the rest in phase 2): K10 at every convolution shape
    of the full-width int8 U-Net (bf16, B=8; its 3x3 and 1x1 convs, the
    fused four-phase 3x3 and 1x1 of the up-blocks, the ``quantize_bwd``
-   adjoints), quantized activations, weights, int32 sums (against a
-   float64 convolution) and dequantized outputs bit for bit against the
-   plain versions and between two calls, each timed (device us after an L2
-   flush, wrapper, plain) beside its bound (int8 tensor cores at 1979 TOP/s
-   or bytes at 3.35 TB/s) and, as yardsticks, the bf16 cuDNN convolution of
-   the same shape and, for the fused kinds, upsample + bf16 conv; K8's float
-   route (one cuDNN transposed convolution) against upsample + conv at the
-   up-blocks (run after phase 3); then ``Tester.do_test()`` in blind mode at
-   full width, T=2, three times: the serving profile (``fuse_resample``),
-   int8 static after ``NetworkBundle.calibrate_quant`` (bench.py's recipe),
-   int8 dynamic with ``quantize_bwd``: sampler ms a step, K10's launches a
-   step (> 0), the fused convs' calls (> 0 in the serving run), five WAV
-   sets, and one profiled run each (device ms and launches a step, K10's
-   device ms, idle share) (run after phase 5).
+   adjoints), quantized activations and weights bit for bit against the
+   plain versions, and each route of the convolution (``qc_conv_sm90_kernel``,
+   TMA + wgmma, which every one of these shapes takes, and ``qc_conv_kernel``,
+   mma.sync, forced): int32 sums (against a float64 convolution) and the
+   bf16 and float32 outputs dequantized with and without bias and with
+   folded per-channel weights, bit for bit, and two calls bit for bit; each timed (device us
+   after an L2 flush, the sm90 route also warm; wrapper; plain) beside its
+   bound (int8 tensor cores at 1979 TOP/s or bytes at 3.35 TB/s) and, as
+   yardsticks, the bf16 cuDNN convolution of the same shape, for the fused
+   kinds upsample + bf16 conv, and ``torch._int_mm`` on the same int8
+   operands (an im2col matrix at 3x3); K8's float route (one cuDNN
+   transposed convolution) against upsample + conv at the up-blocks (run
+   after phase 3); then ``Tester.do_test()`` in blind mode at full width,
+   T=2, three times: the serving profile (``fuse_resample``), int8 static
+   after ``NetworkBundle.calibrate_quant`` (bench.py's recipe), int8 dynamic
+   with ``quantize_bwd``: sampler ms a step, K10's launches a step (> 0;
+   the sm90 route > 0 and the mma route 0, by the wrappers' counts and by
+   the profile's kernel names), the fused convs' calls (> 0 in the serving
+   run), five WAV sets, and one profiled run each (device ms and launches a
+   step, K10's device ms, idle share) (run after phase 5).
 
 A JSON line of the kernels' results precedes the last line (K1's float32
 rows from phase 6, their launches those of its training loop; K2's check
@@ -1138,8 +1148,15 @@ def new_lengths(dev) -> dict:
                              "stft_chirp_analysis_kernel", f"stft_analysis n_fft={n_fft}"),
                   one_launch(lambda: K2.stft_synthesis(spec_p, plan),
                              "stft_chirp_synthesis_kernel", f"stft_synthesis n_fft={n_fft}"))
+        # the bound as at the shipped geometries: the signal read and the
+        # spectrum written once, a real FFT's 2.5 n log2 n operations a frame
+        fft_flops = 2.5 * n_fft * np.log2(n_fft) * blocks.shape[0]
+        bounds = (bound_ms(4 * blocks.numel() + 8 * spec_k.numel(), fft_flops * T),
+                  bound_ms(8 * spec_p.numel() + 4 * y_p.numel(), fft_flops * spec_p.shape[-1]))
         k2[n_fft] = {"hop": hop, "M": plan.M, "frames": T, "err": [err_a, err_s, err_ab],
-                     "device_us_cold": [round(u, 1) for u in us]}
+                     "device_us_cold": [round(u, 1) for u in us],
+                     "bound_us": [round(b[0] * 1e3, 3) for b in bounds],
+                     "bound_by": [b[1] for b in bounds]}
     try:
         STFT(MAX_N_FFT + 1, 2048, hann_window(MAX_N_FFT + 1), device=dev)
     except ValueError as e:
@@ -1172,8 +1189,16 @@ def new_lengths(dev) -> dict:
                              f"minimum_phase fwd L={L}"),
                   one_launch(lambda: K5.minimum_phase_backward(Hs, phs, gy), "minphase_bwd_kernel",
                              f"minimum_phase bwd L={L}"))
+        # the bound as at the shipped Nf: four real FFTs of 2 L points and ~60
+        # operations a point, against h read and y written (backward: h and g
+        # read, dh written)
+        n = 2 * L
+        ops = 8 * (4 * 2.5 * n * np.log2(n) + 60.0 * n)
+        bounds = (bound_ms(8 * 8 * L, ops), bound_ms(12 * 8 * L, ops))
         k5[L] = {"route": ["direct", "chirp"][plan.route], "N1 x N2": [plan.N1, plan.N2],
-                 "err": [e_f, e_b], "tol": [t_f, t_b], "device_us_cold": [round(u, 1) for u in us]}
+                 "err": [e_f, e_b], "tol": [t_f, t_b], "device_us_cold": [round(u, 1) for u in us],
+                 "bound_us": [round(b[0] * 1e3, 3) for b in bounds],
+                 "bound_by": [b[1] for b in bounds]}
     try:
         K5._launch_forward(on(np.ones((1, MINPHASE_MAX_L + 1))))
     except ValueError as e:
@@ -2197,7 +2222,8 @@ def train_step_card_vs_cpu(dev) -> None:
 # ---------------------------------------------------------------------------
 PEAK_INT8_OPS = 1979e12         # H100 SXM int8 tensor cores, dense
 INT8_STEPS = 2                  # diffusion steps of the serving and int8 runs
-K10_KERNELS = ("qc_absmax_kernel", "qc_quantize_kernel", "qc_weight_kernel", "qc_conv_kernel")
+K10_KERNELS = ("qc_absmax_kernel", "qc_quantize_kernel", "qc_weight_kernel", "qc_conv_kernel",
+               "qc_conv_sm90_kernel")
 SERVING = ["network.compute_dtype=bfloat16", "network.fuse_resample=true"]
 INT8_STATIC = SERVING + ["network.quantize_int8=true", "network.quantize_static=true"]
 INT8_DYNAMIC = SERVING + ["network.quantize_int8=true", "network.quantize_accum=int32",
@@ -2235,17 +2261,50 @@ def int8_conv_shapes(dev) -> list:
     return [k + (sorted(r),) for k, r in sorted(seen.items(), key=lambda kv: (-kv[0][3], kv[0]))]
 
 
+def int_mm_operands(xq, wq, kind):
+    """The int32 sums of a convolution as GEMMs for ``torch._int_mm``, one a
+    phase: A (M, taps * C_in) row-major, the input shifted by each tap of
+    the phase (an im2col matrix; the 1x1 kinds' A is x_q itself) and B
+    (taps * C_in, C_out) column-major; A @ B is the phase's sums
+    (B, H, W, C_out)."""
+    import torch
+    import torch.nn.functional as F
+    from buddy_tpu_torch.ops import qconv as Q
+    phases, ntaps, _, taps = Q.tap_table(kind)
+    n, h, w, c = xq.shape
+    out = []
+    for ph in range(phases):
+        tp = taps[ph * ntaps:(ph + 1) * ntaps]
+        if ntaps == 1:
+            a = xq.reshape(n * h * w, c)
+        else:
+            xp = F.pad(xq, (0, 0, 1, 1, 1, 1))
+            a = torch.stack([xp[:, 1 + dy:1 + dy + h, 1 + dx:1 + dx + w] for dy, dx, _ in tp],
+                            dim=3).reshape(n * h * w, ntaps * c)
+        b = wq[[t for _, _, t in tp]].permute(1, 0, 2).reshape(wq.shape[1], ntaps * c)
+        out.append((a, b.t()))
+    return out
+
+
 def k10_checks(dev) -> dict:
     """K10 at every convolution shape of the int8 U-Net, bf16, B=8: the
-    quantized activations (dynamic and per channel), the weights (plain and
-    folded), the int32 sums (against the float64 plain version) and the
-    dequantized output, each bit for bit against the plain version, and two
-    calls bit for bit; then device us a launch after an L2 flush, the bound,
-    the wrapper's and the plain version's ms, and as yardsticks the bf16
-    cuDNN convolution of the same shape (a bf16 conv, not the same
-    function: PyTorch has no int8 convolution on CUDA) and, for the fused
-    kinds, the unfused upsample + bf16 conv; K8's float route at the
-    up-block shapes against the unfused pair."""
+    quantized activations (dynamic and per channel) and weights (plain and
+    folded) bit for bit against the plain versions; then each route of the
+    convolution (``qc_conv_sm90_kernel``, the shapes' own, and
+    ``qc_conv_kernel``, forced): the int32 sums against the float64 plain
+    version, the bf16 and the float32 output dequantized with and without
+    bias and with the folded per-channel weights, each bit for bit, and two
+    calls bit for bit;
+    then each route's device us a launch after an L2 flush (the sm90 route
+    also warm), the bound, the wrapper's and the plain version's ms, and as
+    yardsticks the bf16 cuDNN convolution of the same shape (not the same
+    function: PyTorch has no int8 convolution on CUDA), for the fused kinds
+    the unfused upsample + bf16 conv, and ``torch._int_mm`` on the same int8
+    operands (the 1x1 kinds: x_q itself, the same sums in one call; the 3x3
+    kinds: an im2col matrix built outside the timed window; the fused 3x3:
+    four calls, one a phase; the fused 1x1's sums once, not written four
+    times); K8's float route at the up-block shapes against the unfused
+    pair."""
     import torch
     import torch.nn.functional as F
     from buddy_tpu_torch.models import layers as L
@@ -2253,11 +2312,11 @@ def k10_checks(dev) -> dict:
     shapes = int8_conv_shapes(dev)
     gen = torch.Generator().manual_seed(10)
     rows, k8_rows, rep = [], [], None
-    cl = torch.channels_last
+    cl, bf16 = torch.channels_last, torch.bfloat16
+    kernel = {"sm90": "qc_conv_sm90_kernel", "mma": "qc_conv_kernel"}
     for kind, cin, cout, h, w, roles in shapes:
         k = 3 if kind.endswith("3x3") else 1
-        x = torch.randn((8, cin, h, w), generator=gen).to(dev, torch.bfloat16).contiguous(
-            memory_format=cl)
+        x = torch.randn((8, cin, h, w), generator=gen).to(dev, bf16).contiguous(memory_format=cl)
         wt = (torch.randn((cout, cin, k, k), generator=gen) / (cin * k * k) ** 0.5).to(dev)
         b = (torch.randn(cout, generator=gen) * 0.1).to(dev)
         wd = Q._derived(wt, kind).contiguous()
@@ -2272,28 +2331,63 @@ def k10_checks(dev) -> dict:
             if not torch.equal(xqc, Q.quantize_act_plain(x, sxc)[0]):
                 raise AssertionError(f"{what}: per-channel activation quantization differs")
             wq, sw = Q.quantize_weight(wd)
-            for got, want in zip(Q.quantize_weight(wd) + Q.quantize_weight(wd, sxc),
+            wqc, swc = Q.quantize_weight(wd, sxc)
+            for got, want in zip((wq, sw, wqc, swc),
                                  Q.quantize_weight_plain(wd) + Q.quantize_weight_plain(wd, sxc)):
                 if not torch.equal(got, want):
                     raise AssertionError(f"{what}: weight quantization differs")
-            acc = Q.int8_conv(xq, wq, sw, kind, raw=True)
             acc0 = Q.int8_conv_plain(xq, wq, kind)
-            if not torch.equal(acc, acc0):
-                raise AssertionError(f"{what}: int32 sums differ from the float64 plain version "
-                                     f"({int((acc != acc0).sum())} elements)")
-            call = lambda: Q.int8_conv(xq, wq, sw, kind, out_dtype=torch.bfloat16, s_x=sx, bias=b)
-            y = call()
-            y0 = Q.dequant_plain(acc0, torch.bfloat16, sx * sw, b)
-            if not torch.equal(y.permute(0, 2, 3, 1), y0) or not torch.equal(y, call()):
-                raise AssertionError(f"{what}: dequantized output differs (or two calls differ)")
-            del acc, acc0, y0
-            us = device_us_per_launch(call, ["qc_conv_kernel"], reps=5)["qc_conv_kernel"]
-            ms = cuda_ms(call, reps=5, warmup=1)
+            accc = Q.int8_conv_plain(xqc, wqc, kind)
+            f32 = torch.float32
+            want = {"with bias": Q.dequant_plain(acc0, bf16, sx * sw, b),
+                    "without bias": Q.dequant_plain(acc0, bf16, sx * sw),
+                    "folded per-channel weights": Q.dequant_plain(accc, bf16, swc, b),
+                    "float32 with bias": Q.dequant_plain(acc0, f32, sx * sw, b),
+                    "float32 without bias": Q.dequant_plain(acc0, f32, sx * sw),
+                    "float32 folded per-channel weights": Q.dequant_plain(accc, f32, swc, b)}
+            del accc
+            for route in Q.ROUTES:
+                acc = Q.int8_conv(xq, wq, sw, kind, raw=True, route=route)
+                if not torch.equal(acc, acc0):
+                    raise AssertionError(f"{what}, {route} route: int32 sums differ from the "
+                                         f"float64 plain version "
+                                         f"({int((acc != acc0).sum())} elements)")
+                got = {"with bias": Q.int8_conv(xq, wq, sw, kind, s_x=sx, bias=b, route=route),
+                       "without bias": Q.int8_conv(xq, wq, sw, kind, s_x=sx, route=route),
+                       "folded per-channel weights": Q.int8_conv(xqc, wqc, swc, kind, bias=b,
+                                                                 route=route),
+                       "float32 with bias": Q.int8_conv(xq, wq, sw, kind, out_dtype=f32, s_x=sx,
+                                                        bias=b, route=route),
+                       "float32 without bias": Q.int8_conv(xq, wq, sw, kind, out_dtype=f32,
+                                                           s_x=sx, route=route),
+                       "float32 folded per-channel weights": Q.int8_conv(
+                           xqc, wqc, swc, kind, out_dtype=f32, bias=b, route=route)}
+                for form, y in got.items():
+                    if not torch.equal(y.permute(0, 2, 3, 1), want[form]):
+                        raise AssertionError(f"{what}, {route} route: dequantized output "
+                                             f"{form} differs")
+                if not torch.equal(got["with bias"],
+                                   Q.int8_conv(xq, wq, sw, kind, s_x=sx, bias=b, route=route)):
+                    raise AssertionError(f"{what}, {route} route: two calls differ")
+                del acc, got
+            del want
+            calls = {r: (lambda r=r: Q.int8_conv(xq, wq, sw, kind, out_dtype=bf16, s_x=sx,
+                                                 bias=b, route=r)) for r in Q.ROUTES}
+            us = {r: device_us_per_launch(calls[r], [kernel[r]], reps=5)[kernel[r]]
+                  for r in Q.ROUTES}
+            us_warm = device_us_per_launch(calls["sm90"], [kernel["sm90"]], reps=5,
+                                           cold=False)[kernel["sm90"]]
+            ms = {r: cuda_ms(calls[r], reps=5, warmup=1) for r in Q.ROUTES}
             plain_ms = cuda_ms(lambda: Q.dequant_plain(Q.int8_conv_plain(xq, wq, kind),
-                                                       torch.bfloat16, sx * sw, b),
+                                                       bf16, sx * sw, b),
                                reps=1, warmup=0)
             q_ms = cuda_ms(lambda: Q.quantize_act(x), reps=5, warmup=1)
-            wb, bb = wt.to(torch.bfloat16), b.to(torch.bfloat16)
+            mm = int_mm_operands(xq, wq, kind)
+            mm_eq = torch.equal(torch._int_mm(*mm[0]).reshape(acc0.shape[0], h, w, cout),
+                                acc0[:, 0::2, 0::2] if kind.startswith("up") else acc0)
+            mm_ms = cuda_ms(lambda: [torch._int_mm(a_, b_) for a_, b_ in mm], reps=5, warmup=1)
+            del mm, acc0
+            wb, bb = wt.to(bf16), b.to(bf16)
             if kind.startswith("up"):
                 fused = R.up2_conv3x3 if k == 3 else R.up2_conv1x1
                 yard = cuda_ms(lambda: fused(x, wt, b), reps=5, warmup=1)
@@ -2315,15 +2409,17 @@ def k10_checks(dev) -> dict:
         bound = bound_ms(8 * h * w * cin + wq.numel() + 2 * n_out + 8 * cout, 2.0 * macs,
                          PEAK_INT8_OPS)
         qbound = bound_ms(8 * h * w * cin * 3, 0.0)
-        row = [kind, cin, cout, h, w, "+".join(roles), round(us, 2), round(bound[0] * 1e3, 2),
-               bound[1], round(ms, 4), round(plain_ms, 3), round(q_ms, 4), round(yard, 4),
-               None if naive is None else round(naive, 4)]
+        row = [kind, cin, cout, h, w, "+".join(roles), round(us["sm90"], 2), round(us_warm, 2),
+               round(us["mma"], 2), round(bound[0] * 1e3, 2), bound[1], round(ms["sm90"], 4),
+               round(ms["mma"], 4), round(plain_ms, 3), round(q_ms, 4), round(yard, 4),
+               None if naive is None else round(naive, 4), round(mm_ms, 4), mm_eq]
         rows.append(row)
         log("K10 " + json.dumps(row))
         if rep is None and kind == "3x3" and cin == 128 and cout == 128 and h == 256:
-            rep = dict(us=us, ms=ms, plain_ms=plain_ms, bound=bound, yard=yard, q_ms=q_ms,
-                       qbound=qbound, shape=[8, cin, h, w, cout], x=x, wq=wq, sw=sw, wd=wd)
-        del x, xq, xq0, xqc, wq, wd
+            rep = dict(us=us, us_warm=us_warm, ms=ms, plain_ms=plain_ms, bound=bound, yard=yard,
+                       mm_ms=mm_ms, q_ms=q_ms, qbound=qbound, shape=[8, cin, h, w, cout], x=x,
+                       wd=wd)
+        del x, xq, xq0, xqc, wq, wqc, wd
         torch.cuda.empty_cache()
     # the representative shape (the top level's 3x3): the activation and
     # weight quantization's own device times
@@ -2336,20 +2432,35 @@ def k10_checks(dev) -> dict:
         wq_plain = cuda_ms(lambda: Q.quantize_weight_plain(wd), reps=5)
         qa_plain = cuda_ms(lambda: Q.quantize_act_plain(x), reps=3)
     log(f"K10 at {len(rows)} convolution shapes of the int8 U-Net (B=8, bf16): activations, "
-        f"weights, int32 sums and dequantized outputs bit for bit against the plain versions, "
-        f"two calls bit for bit; rows [kind, C_in, C_out, H, W, roles, device us cold, bound us, "
-        f"bound by, wrapper ms, plain ms, quantize_act ms, yardstick ms (bf16 cuDNN conv; fused "
-        f"kinds: K8's float route), unfused upsample + bf16 conv ms]")
+        f"weights, and each route's int32 sums and dequantized outputs (bf16 and float32, with "
+        f"and without bias, folded per-channel weights) bit for bit against the plain versions, "
+        f"two calls bit "
+        f"for bit; rows [kind, C_in, C_out, H, W, roles, sm90 device us cold, sm90 device us "
+        f"warm, mma device us cold, bound us, bound by, sm90 wrapper ms, mma wrapper ms, plain "
+        f"ms, quantize_act ms, yardstick ms (bf16 cuDNN conv; fused kinds: K8's float route), "
+        f"unfused upsample + bf16 conv ms, torch._int_mm ms (3x3: over an im2col matrix; fused "
+        f"3x3: four calls), _int_mm's sums equal]")
     log("K8 float route (one cuDNN transposed conv with the derived kernel) against upsample + "
         "bf16 conv at the up-blocks [kind, C_in, C_out, H, W, max abs err, tolerance 2^-6 of the "
         "peak, fused ms, unfused ms]: " + json.dumps(k8_rows))
     shape = rep["shape"]
+    library = {"library": "torch._int_mm over an im2col matrix (built outside the timed window)",
+               "yardstick_bf16_conv_ms": rep["yard"],
+               "yardstick": "a bf16 cuDNN conv of the same shape, not the same function"}
     entries = {
-        "int8_conv": dict(err=0.0, tol=0.0, times=(rep["ms"], rep["plain_ms"], None),
+        "int8_conv": dict(err=0.0, tol=0.0, times=(rep["ms"]["mma"], rep["plain_ms"],
+                                                   rep["mm_ms"]),
                           bound=rep["bound"], shape=shape,
-                          extra={"device_us": rep["us"], "yardstick_bf16_conv_ms": rep["yard"],
-                                 "yardstick": "a bf16 cuDNN conv of the same shape, not the "
-                                              "same function", "shapes": rows}),
+                          extra={"device_us": rep["us"]["mma"], "kernel": "qc_conv_kernel",
+                                 "route": "mma.sync, the shapes the sm90 rule does not take; "
+                                          "forced at the 43 shapes", **library}),
+        "int8_conv_sm90": dict(err=0.0, tol=0.0, times=(rep["ms"]["sm90"], rep["plain_ms"],
+                                                        rep["mm_ms"]),
+                               bound=rep["bound"], shape=shape,
+                               extra={"device_us": rep["us"]["sm90"],
+                                      "device_us_warm": rep["us_warm"],
+                                      "kernel": "qc_conv_sm90_kernel", **library,
+                                      "shapes": rows}),
         "quantize_act": dict(err=0.0, tol=0.0, times=(rep["q_ms"], qa_plain, None),
                              bound=rep["qbound"], shape=shape[:4],
                              extra={"device_us": q_us}),
@@ -2425,8 +2536,8 @@ def serving_and_int8_runs(dev) -> dict:
               "tester.posterior_sampling.guidance_jacobian=full",
               "tester.posterior_sampling.blind_hp.op_updates_per_step=10",
               "tester.batched.use=True", "tester.batched.batch_size=8"]
-    k10 = {"int8_conv": Q.int8_conv, "quantize_act": Q.quantize_act,
-           "quantize_weight": Q.quantize_weight}
+    k10 = {"int8_conv_sm90": Q.int8_conv_sm90, "int8_conv_mma": Q.int8_conv_mma,
+           "quantize_act": Q.quantize_act, "quantize_weight": Q.quantize_weight}
     out = {}
     for label, over in (("serving", SERVING), ("int8_static", INT8_STATIC),
                         ("int8_dynamic", INT8_DYNAMIC)):
@@ -2466,10 +2577,18 @@ def serving_and_int8_runs(dev) -> dict:
         if label == "serving" and fused == 0:
             raise AssertionError("serving profile: no fused up-convolution ran")
         if label != "serving":
-            missing = [k for k, v in launches.items() if v == 0]
-            if missing:
-                raise AssertionError(f"{label}: K10 wrappers not launched: {missing}")
+            # every conv of the full-width U-Net takes the sm90 route
+            missing = [k for k, v in launches.items() if v == 0 and k != "int8_conv_mma"]
+            if missing or launches["int8_conv_mma"] != 0:
+                raise AssertionError(f"{label}: K10 wrappers not launched: {missing}; the mma "
+                                     f"route launched {launches['int8_conv_mma']} times")
         prof = profile_run(run, INT8_STEPS, K10_KERNELS, label)
+        if label != "serving" and (prof["kernels_launches"]["qc_conv_sm90_kernel"] == 0 or
+                                   prof["kernels_launches"]["qc_conv_kernel"] != 0):
+            raise AssertionError(f"{label}: the profile shows qc_conv_sm90_kernel "
+                                 f"{prof['kernels_launches']['qc_conv_sm90_kernel']} and "
+                                 f"qc_conv_kernel {prof['kernels_launches']['qc_conv_kernel']} "
+                                 f"times (want > 0 and 0)")
         out[label] = {"sampler_ms_per_step": round(sampler_s[0] / INT8_STEPS * 1e3, 1),
                       "k10_launches": launches,
                       "k10_launches_per_step": {k: round(v / INT8_STEPS, 1)
@@ -2484,12 +2603,18 @@ def serving_and_int8_runs(dev) -> dict:
     return out
 
 
-def small_reference_int8(dev) -> None:
+def small_reference_int8(dev) -> dict:
     """The small blind program with ``fuse_resample`` and static int8, card
     (kernels) against CPU (plain versions): the same weights (seed), the
     scales calibrated on the card and copied to the CPU network, the same
-    noise; float32 body."""
+    noise; float32 body.  Its convs (nf=16: 16-64 channels) miss the sm90
+    rule: this is the run of K10's mma route, its launches counted from
+    just before the card's sampler call (after calibration) to just after.
+    Then the route ``int8_conv`` picks at each distinct conv shape of that
+    run, held bit for bit against the plain versions."""
     import torch
+    from buddy_tpu_torch.models import layers as L
+    from buddy_tpu_torch.ops import qconv as Q
     from buddy_tpu_torch.sampling.euler_heun import NoiseSource
     overrides = ["network.nf=16", "network.ch_mult=[1,2,2,2]", "tester.sampling_params.T=2",
                  "tester.posterior_sampling.blind_hp.op_updates_per_step=2",
@@ -2497,7 +2622,7 @@ def small_reference_int8(dev) -> None:
                  "network.fuse_resample=true", "network.quantize_int8=true",
                  "network.quantize_static=true"]
     ys = torch.from_numpy(load_wavs("degraded", 2, 16384))
-    outs, scales = [], None
+    outs, scales, shapes = [], None, set()
     for d in (dev, torch.device("cpu")):
         sampler, op = build_program(overrides, d)
         bundle = sampler.model
@@ -2514,9 +2639,21 @@ def small_reference_int8(dev) -> None:
                         b.copy_(scales[n])
         params, H = op.reset_batched(2, noise=torch.randn(
             (2, op.length_rir), generator=torch.Generator().manual_seed(4)))
+        hooks = []
+        if d.type == "cuda":
+            hooks = [m.register_forward_hook(
+                lambda m, inp, out: shapes.add((m.kind, inp[0].shape[1], m.weight.shape[0],
+                                                *inp[0].shape[2:], inp[0].shape[0])))
+                for m in bundle.module.modules()
+                if isinstance(m, L.QConv) or (isinstance(m, L.FusedUpConv) and m.quant)]
+            Q.int8_conv_mma.launches = Q.int8_conv_sm90.launches = 0
         out = sampler.predict_conditional_batched(
             ys, op, blind=True, noise=NoiseSource(torch.Generator().manual_seed(5)),
             op_params_batch=params, H_batch=H)
+        if d.type == "cuda":
+            mma, sm90 = Q.int8_conv_mma.launches, Q.int8_conv_sm90.launches
+            for h in hooks:
+                h.remove()
         outs.append(out.detach().cpu())
     # the int8 kernels are bit for bit with the plain versions on equal
     # inputs; the float layers (cuDNN against the CPU's convolutions) differ
@@ -2526,9 +2663,65 @@ def small_reference_int8(dev) -> None:
     err = max_err(outs[0], outs[1])
     tol = 3e-2 * float(outs[1].abs().max())
     check("small blind program, fused + static int8, card vs CPU", err, tol)
+    if mma == 0 or sm90 != 0:
+        raise AssertionError(f"small int8 program: the mma route launched {mma} times and the "
+                             f"sm90 route {sm90} (want > 0 and 0)")
     log(f"small blind program with fuse_resample and static int8 (B=2, 16384 samples, T=2, "
         f"nf=16): card kernels vs CPU plain versions, max abs error {err:.3e} (tolerance "
-        f"{tol:.3e}, {err / float(outs[1].abs().max()):.2e} of the peak)")
+        f"{tol:.3e}, {err / float(outs[1].abs().max()):.2e} of the peak); K10's mma route "
+        f"launched {mma} times in the card's sampler call")
+    checked = small_int8_conv_checks(dev, sorted(shapes))
+    return {"launches": mma, "shapes": checked}
+
+
+def small_int8_conv_checks(dev, shapes) -> list:
+    """K10 at the conv shapes of the small int8 program (kind, C_in, C_out,
+    H, W, B), through the route ``int8_conv`` picks there (mma: 16-64
+    channels, K padded in shared memory): the int32 sums against the float64
+    plain version, the float32 (the program's dtype) and bf16 outputs
+    dequantized with and without bias and with folded per-channel weights,
+    each bit for bit, and two calls bit for bit."""
+    import torch
+    from buddy_tpu_torch.ops import qconv as Q
+    gen = torch.Generator().manual_seed(12)
+    f32, bf16 = torch.float32, torch.bfloat16
+    for kind, cin, cout, h, w, n in shapes:
+        what = f"K10 {kind} {cin}->{cout} at {n}x{h}x{w} (small int8 program)"
+        if Q.conv_route(cin, cout) != "mma":
+            raise AssertionError(f"{what}: takes the {Q.conv_route(cin, cout)} route")
+        k = 3 if kind.endswith("3x3") else 1
+        x = torch.randn((n, cin, h, w), generator=gen).to(dev).contiguous(
+            memory_format=torch.channels_last)
+        wt = (torch.randn((cout, cin, k, k), generator=gen) / (cin * k * k) ** 0.5).to(dev)
+        b = (torch.randn(cout, generator=gen) * 0.1).to(dev)
+        wd = Q._derived(wt, kind).contiguous()
+        with torch.no_grad():
+            xq, sx = Q.quantize_act(x)
+            sxc = Q.static_scale(x.abs().amax(dim=(0, 2, 3)) * 0.8)
+            xqc = Q.quantize_act(x, sxc)[0]
+            wq, sw = Q.quantize_weight(wd)
+            wqc, swc = Q.quantize_weight(wd, sxc)
+            acc0, accc = Q.int8_conv_plain(xq, wq, kind), Q.int8_conv_plain(xqc, wqc, kind)
+            if not torch.equal(Q.int8_conv(xq, wq, sw, kind, raw=True), acc0):
+                raise AssertionError(f"{what}: int32 sums differ from the float64 plain version")
+            for dt in (f32, bf16):
+                forms = {"with bias": ((xq, wq, sw), dict(s_x=sx, bias=b), (acc0, sx * sw, b)),
+                         "without bias": ((xq, wq, sw), dict(s_x=sx), (acc0, sx * sw, None)),
+                         "folded per-channel weights": ((xqc, wqc, swc), dict(bias=b),
+                                                        (accc, swc, b))}
+                for form, (ops, kw, (acc, scale, bias)) in forms.items():
+                    y = Q.int8_conv(*ops, kind, out_dtype=dt, **kw)
+                    if not torch.equal(y.permute(0, 2, 3, 1),
+                                       Q.dequant_plain(acc, dt, scale, bias)):
+                        raise AssertionError(f"{what}: {dt} output {form} differs")
+                    if not torch.equal(y, Q.int8_conv(*ops, kind, out_dtype=dt, **kw)):
+                        raise AssertionError(f"{what}: two calls differ")
+    rows = [list(s) for s in shapes]
+    log(f"K10 at the {len(rows)} conv shapes of the small int8 program [kind, C_in, C_out, H, W, "
+        f"B], the route int8_conv picks (mma): int32 sums, float32 and bf16 outputs (with and "
+        f"without bias, folded per-channel weights) bit for bit against the plain versions, two "
+        f"calls bit for bit: " + json.dumps(rows))
+    return rows
 
 
 def main() -> int:
@@ -2612,6 +2805,8 @@ def main() -> int:
         "wpe_solve": ("cuda", "buddy_tpu_torch/csrc/wpe_solve.cu",
                       "buddy_tpu/sampling/wpe.py:61"),
         "int8_conv": ("cuda", "buddy_tpu_torch/csrc/qconv.cu", "buddy_tpu/ops/qconv.py:97"),
+        "int8_conv_sm90": ("cuda", "buddy_tpu_torch/csrc/qconv_sm90.cu",
+                           "buddy_tpu/ops/qconv.py:97"),
         "quantize_act": ("cuda", "buddy_tpu_torch/csrc/qconv.cu", "buddy_tpu/ops/qconv.py:65"),
         "quantize_weight": ("cuda", "buddy_tpu_torch/csrc/qconv.cu",
                             "buddy_tpu/ops/qconv.py:81"),
@@ -2642,14 +2837,18 @@ def main() -> int:
     train = training_path(dev, wrappers)
     training_clis(dev)
     small_reference(dev)
-    small_reference_int8(dev)
+    small_int8 = small_reference_int8(dev)
     train_step_card_vs_cpu(dev)
 
     # K10's launches are those of the int8 dynamic run (quantize_bwd, fused
-    # up-blocks: every wrapper), the static run's beside them
-    for name in ("int8_conv", "quantize_act", "quantize_weight"):
+    # up-blocks: every wrapper; the sm90 route), the static run's beside
+    # them; the mma route's those of the small int8 program
+    for name in ("int8_conv_sm90", "quantize_act", "quantize_weight"):
         launches[name] = runs["int8_dynamic"]["k10_launches"][name]
         checks[name]["extra"]["launches_int8_static"] = runs["int8_static"]["k10_launches"][name]
+    launches["int8_conv"] = small_int8["launches"]
+    checks["int8_conv"]["extra"]["launches_from"] = "the small int8 program (phase 7, nf=16)"
+    checks["int8_conv"]["extra"]["own_shapes"] = small_int8["shapes"]
 
     # K1's float32 rows come from the training path, its launches from the
     # training loop's run; K2 also reports its launches a train step

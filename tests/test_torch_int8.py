@@ -352,10 +352,12 @@ def test_wrappers_take_the_plain_versions_only_on_the_cpu():
     """A tensor that is not on the CPU goes to the kernels, which check it
     and raise for what they do not take; the launch counters move only
     there."""
-    before = (Q.quantize_act.launches, Q.int8_conv.launches)
+    before = (Q.quantize_act.launches, Q.int8_conv_sm90.launches,
+              Q.int8_conv_mma.launches)
     x = torch.randn(1, 8, 2, 2)
     Q.int8_conv(*Q.quantize_act(x)[:1], *Q.quantize_weight(torch.randn(8, 8, 3, 3)), "3x3")
-    assert (Q.quantize_act.launches, Q.int8_conv.launches) == before
+    assert (Q.quantize_act.launches, Q.int8_conv_sm90.launches,
+            Q.int8_conv_mma.launches) == before
     with pytest.raises(ValueError, match="CUDA"):
         Q.quantize_act(torch.empty((1, 8, 2, 2), device="meta"))
     with pytest.raises(ValueError, match="int8"):
