@@ -6,6 +6,9 @@ inverse of ``buddy_tpu/models/convert.py::_convert_leaf``, and
 ``to_jax_params`` turns it back:
 
     Conv   kernel (kH, kW, I, O)  <-> weight (O, I, kH, kW)
+    FIR resampling conv (Upsample / Downsample with ``fir`` and
+    ``with_conv``): Conv2d_0_weight (kH, kW, I, O) <-> Conv2d_0_weight
+    (O, I, kH, kW); Conv2d_0_bias unchanged
     Dense  kernel (in, out)       <-> weight (out, in)
     GroupNorm scale / bias        <-> weight / bias
     NIN W / b, GaussianFourier W  <-> unchanged
@@ -32,7 +35,12 @@ import numpy as np
 import torch
 
 
+_FIR_WEIGHT = "Conv2d_0_weight"
+
+
 def _leaf(name: str, value: np.ndarray):
+    if name == _FIR_WEIGHT:
+        return name, value.transpose(3, 2, 0, 1)
     if name == "kernel":
         if value.ndim == 4:
             return "weight", value.transpose(3, 2, 0, 1)
@@ -69,6 +77,8 @@ def from_jax_params(tree: Mapping) -> dict:
 
 
 def _to_jax_leaf(name: str, value: np.ndarray):
+    if name == _FIR_WEIGHT:
+        return name, value.transpose(2, 3, 1, 0)
     if name == "weight":
         if value.ndim == 4:
             return "kernel", value.transpose(2, 3, 1, 0)

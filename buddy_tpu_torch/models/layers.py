@@ -3,10 +3,16 @@
 Tensors are NCHW; the U-Net keeps them in channels_last memory format, so
 they lie in memory as the JAX package's NHWC arrays do.  Submodule and
 parameter names follow the JAX package's (``GroupNorm_0``, ``Conv_0``,
-``Dense_0``, ``NIN_0`` ...), so ``models/convert.py`` maps the two parameter
-trees one to one.  Convolutions and dense layers run in the dtype of their
-input (their float32 weights are cast per call), which is how the JAX
-package's ``dtype=compute_dtype`` layers behave.
+``Dense_0``, ``NIN_0``, ``Conv2d_0_weight`` ...), so ``models/convert.py``
+maps the two parameter trees one to one.  Convolutions and dense layers
+run in the dtype of their input (their float32 weights are cast per call),
+which is how the JAX package's ``dtype=compute_dtype`` layers behave on the
+body's activations.  A conv built with ``dtype`` casts its input to it
+first: the body's compute dtype, where a float32 tensor can reach a JAX
+conv of ``dtype=compute_dtype`` (after a residual pyramid's sum), and
+float32 for the JAX package's convs built without a dtype (flax promotes a
+bfloat16 input with their float32 weights to float32, and what follows is
+promoted with it).
 """
 
 from __future__ import annotations
@@ -16,10 +22,11 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from buddy_tpu_torch.ops import qconv as Q
+from buddy_tpu_torch.ops import resample as R
 from buddy_tpu_torch.ops.groupnorm import group_norm_act
-from buddy_tpu_torch.ops.resample import lhs_dilated_conv
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 
@@ -76,12 +83,13 @@ def group_norm(ch: int, act=None) -> GroupNormAct:
 
 
 class Conv(nn.Conv2d):
-    """nn.Conv2d in the input's dtype, with the DDPM initializer."""
+    """nn.Conv2d in ``dtype`` when given (the input is cast to it), else in
+    the input's dtype, with the DDPM initializer."""
 
     def __init__(self, in_ch, out_ch, kernel_size, *, padding=0, stride=1, bias=True,
-                 init_scale=1.0):
+                 init_scale=1.0, dtype=None):
         super().__init__(in_ch, out_ch, kernel_size, stride=stride, padding=padding, bias=bias)
-        self.init_scale = init_scale
+        self.init_scale, self.compute_dtype = init_scale, dtype
 
     def init_(self, generator):
         o, i, kh, kw = self.weight.shape
@@ -91,6 +99,8 @@ class Conv(nn.Conv2d):
                 self.bias.zero_()
 
     def forward(self, x):
+        if self.compute_dtype is not None:
+            x = x.to(self.compute_dtype)
         b = None if self.bias is None else self.bias.to(x.dtype)
         return self._conv_forward(x, self.weight.to(x.dtype), b)
 
@@ -167,22 +177,26 @@ class FusedUpConv(_Int8, Conv):
         if self.quant:
             return self._int8(x)
         FusedUpConv.float_calls += 1
-        return lhs_dilated_conv(x, Q.float_weight(self.weight, self.kind, x.dtype,
+        return R.lhs_dilated_conv(x, Q.float_weight(self.weight, self.kind, x.dtype,
                                                   self.weight_cache), self.bias.to(x.dtype))
 
 
-def conv3x3(in_ch, out_ch, *, init_scale=1.0, stride=1, bias=True, quant=False) -> Conv:
+def conv3x3(in_ch, out_ch, *, init_scale=1.0, stride=1, bias=True, quant=False,
+            dtype=None) -> Conv:
+    """A 3x3 (pad 1) conv; ``quant``: int8 (K10), which runs in its input's
+    dtype as the JAX package's QConv does, whatever ``dtype``."""
     if quant:
         if stride != 1:
             raise NotImplementedError("int8 convolutions run at stride 1")
         return QConv(in_ch, out_ch, 3, bias=bias, init_scale=init_scale, quant=quant)
-    return Conv(in_ch, out_ch, 3, padding=1, stride=stride, bias=bias, init_scale=init_scale)
+    return Conv(in_ch, out_ch, 3, padding=1, stride=stride, bias=bias, init_scale=init_scale,
+                dtype=dtype)
 
 
-def conv1x1(in_ch, out_ch, *, init_scale=1.0, bias=True, quant=False) -> Conv:
+def conv1x1(in_ch, out_ch, *, init_scale=1.0, bias=True, quant=False, dtype=None) -> Conv:
     if quant:
         return QConv(in_ch, out_ch, 1, bias=bias, init_scale=init_scale, quant=quant)
-    return Conv(in_ch, out_ch, 1, bias=bias, init_scale=init_scale)
+    return Conv(in_ch, out_ch, 1, bias=bias, init_scale=init_scale, dtype=dtype)
 
 
 class Dense(nn.Linear):
@@ -304,42 +318,164 @@ class AttnBlockpp(nn.Module):
         return x + h if not self.skip_rescale else (x + h) * _INV_SQRT2
 
 
-class ResnetBlockBigGANpp(nn.Module):
-    """BigGAN residual block with optional nearest-up / avg-pool-down
-    resampling (the FIR resampling path is not ported: ROADMAP.md §1).
+class _Resample(nn.Module):
+    """x2 resampling between levels, optionally with a 3x3 conv: ``Conv_0``
+    without FIR (float32, as the JAX package's, built without a dtype);
+    with FIR the raw ``Conv2d_0_weight`` (O, I, 3, 3; the JAX package's is
+    HWIO) and ``Conv2d_0_bias`` of a SAME conv on the FIR side."""
 
-    ``qconv``: falsy, True or (accum, bwd_quant, static_scale): Conv_0,
-    Conv_1 and Conv_2 run int8 (K10).  ``fuse_up``: an up-block folds the
-    nearest-up2 into Conv_0 and Conv_2 (K8, ``FusedUpConv``) and upsamples
-    nothing.  ``dropout`` is the identity, as in the JAX package: its
-    ResBlock applies ``nn.Dropout`` with ``deterministic=True`` by default
-    (``buddy_tpu/models/layers.py:417,458``) and no caller passes False, so
-    neither package drops anything, in training or in sampling."""
-
-    def __init__(self, act, in_ch: int, out_ch: int | None = None, *, up=False, down=False,
-                 dropout=0.0, fir=False, skip_rescale=True, init_scale=0.0, temb_dim=None,
-                 qconv=False, fuse_up=False):
+    def __init__(self, in_ch: int, out_ch: int | None = None, *, with_conv=False, fir=False,
+                 fir_kernel=(1, 3, 3, 1)):
         super().__init__()
-        if fir:
-            raise NotImplementedError("FIR resampling is not ported yet (ROADMAP.md §1, item 1)")
         out_ch = out_ch or in_ch
-        self.act, self.up, self.down, self.skip_rescale = act, up, down, skip_rescale
-        self.fused_up = up and fuse_up
+        self.with_conv, self.fir, self.fir_kernel = with_conv, fir, tuple(fir_kernel)
+        if with_conv and fir:
+            self.Conv2d_0_weight = nn.Parameter(torch.zeros(out_ch, in_ch, 3, 3))
+            self.Conv2d_0_bias = nn.Parameter(torch.zeros(out_ch))
+        elif with_conv:
+            self.Conv_0 = self._conv(in_ch, out_ch)
+
+    def init_(self, generator):
+        if self.with_conv and self.fir:
+            o, i = self.Conv2d_0_weight.shape[:2]
+            default_init_(self.Conv2d_0_weight, 1.0, i * 9, o * 9, generator)
+            with torch.no_grad():
+                self.Conv2d_0_bias.zero_()
+
+
+class Upsample(_Resample):
+    """x2 upsampling (``buddy_tpu/models/layers.py::Upsample``): nearest,
+    then ``Conv_0``; or FIR, then the raw conv (``upsample_conv_2d``)."""
+
+    @staticmethod
+    def _conv(in_ch, out_ch):
+        return conv3x3(in_ch, out_ch, dtype=torch.float32)
+
+    def forward(self, x):
+        if not self.fir:
+            h = naive_upsample_2d(x)
+            return self.Conv_0(h) if self.with_conv else h
+        if not self.with_conv:
+            return R.upsample_2d(x, self.fir_kernel, factor=2)
+        h = R.upsample_conv_2d(x, self.Conv2d_0_weight, self.fir_kernel, factor=2)
+        return h + self.Conv2d_0_bias[:, None, None]
+
+
+class Downsample(_Resample):
+    """x2 downsampling (``buddy_tpu/models/layers.py::Downsample``): a 2x2
+    average, or the input padded by one row and column at the end and a
+    VALID stride-2 ``Conv_0``; or the raw conv, then FIR
+    (``conv_downsample_2d``), or FIR alone."""
+
+    @staticmethod
+    def _conv(in_ch, out_ch):
+        return Conv(in_ch, out_ch, 3, stride=2, dtype=torch.float32)
+
+    def forward(self, x):
+        if not self.fir:
+            return self.Conv_0(F.pad(x, (0, 1, 0, 1))) if self.with_conv \
+                else naive_downsample_2d(x)
+        if not self.with_conv:
+            return R.downsample_2d(x, self.fir_kernel, factor=2)
+        h = R.conv_downsample_2d(x, self.Conv2d_0_weight, self.fir_kernel, factor=2)
+        return h + self.Conv2d_0_bias[:, None, None]
+
+
+class _ResBlock(nn.Module):
+    """A residual block; with ``remat`` (set by ``NCSNpp``) its forward is
+    recomputed in the backward pass instead of keeping its activations
+    (``torch.utils.checkpoint``, as the JAX package's ``nn.remat``): the
+    values and gradients do not change."""
+
+    remat = False
+
+    def forward(self, x, temb=None):
+        if self.remat and torch.is_grad_enabled():
+            return checkpoint(self._forward, x, temb, use_reentrant=False)
+        return self._forward(x, temb)
+
+    def _skip(self, x, h):
+        return x + h if not self.skip_rescale else (x + h) * _INV_SQRT2
+
+
+class ResnetBlockDDPMpp(_ResBlock):
+    """DDPM residual block (``buddy_tpu/models/layers.py::ResnetBlockDDPMpp``):
+    GroupNorm and the activation, Conv_0, plus Dense_0 of act(temb),
+    GroupNorm and the activation, Conv_1; the shortcut is Conv_2
+    (``conv_shortcut``) or NIN_0 where the channels change.  Its convs stay
+    float under ``quantize_int8``, as in the JAX package; ``dropout`` is
+    the identity, as there."""
+
+    def __init__(self, act, in_ch: int, out_ch: int | None = None, *, conv_shortcut=False,
+                 dropout=0.0, skip_rescale=False, init_scale=0.0, temb_dim=None, dtype=None):
+        super().__init__()
+        out_ch = out_ch or in_ch
+        self.act, self.skip_rescale = act, skip_rescale
         self.GroupNorm_0 = group_norm(in_ch, act)
-        self.Conv_0 = FusedUpConv(in_ch, out_ch, 3, quant=qconv) if self.fused_up \
-            else conv3x3(in_ch, out_ch, quant=qconv)
+        self.Conv_0 = conv3x3(in_ch, out_ch, dtype=dtype)
         if temb_dim is not None:
             self.Dense_0 = Dense(temb_dim, out_ch)
         self.GroupNorm_1 = group_norm(out_ch, act)
-        self.Conv_1 = conv3x3(out_ch, out_ch, init_scale=init_scale, quant=qconv)
+        self.Conv_1 = conv3x3(out_ch, out_ch, init_scale=init_scale, dtype=dtype)
+        if in_ch != out_ch:
+            if conv_shortcut:
+                self.Conv_2 = conv3x3(in_ch, out_ch, dtype=dtype)
+            else:
+                self.NIN_0 = NIN(in_ch, out_ch)
+
+    def _forward(self, x, temb=None):
+        h = self.Conv_0(self.GroupNorm_0(x))
+        if temb is not None:
+            h = h + self.Dense_0(self.act(temb))[:, :, None, None]
+        h = self.Conv_1(self.GroupNorm_1(h))
+        if hasattr(self, "Conv_2"):
+            x = self.Conv_2(x)
+        elif hasattr(self, "NIN_0"):
+            x = self.NIN_0(x)
+        return self._skip(x, h)
+
+
+class ResnetBlockBigGANpp(_ResBlock):
+    """BigGAN residual block with optional up / down resampling of h and x:
+    nearest-up and 2x2 average, or FIR with ``fir`` (``fir_kernel``).
+
+    ``qconv``: falsy, True or (accum, bwd_quant, static_scale): Conv_0,
+    Conv_1 and Conv_2 run int8 (K10).  ``fuse_up``: an up-block without FIR
+    folds the nearest-up2 into Conv_0 and Conv_2 (K8, ``FusedUpConv``) and
+    upsamples nothing; under FIR it does nothing, as in the JAX package
+    (``fused_up = up and not fir and fuse_up``).  ``dtype``: the float
+    convs'.  ``dropout`` is the identity, as in the JAX
+    package: its ResBlock applies ``nn.Dropout`` with ``deterministic=True``
+    by default (``buddy_tpu/models/layers.py:417,458``) and no caller passes
+    False, so neither package drops anything, in training or in sampling."""
+
+    def __init__(self, act, in_ch: int, out_ch: int | None = None, *, up=False, down=False,
+                 dropout=0.0, fir=False, fir_kernel=(1, 3, 3, 1), skip_rescale=True,
+                 init_scale=0.0, temb_dim=None, qconv=False, fuse_up=False, dtype=None):
+        super().__init__()
+        out_ch = out_ch or in_ch
+        self.act, self.up, self.down, self.skip_rescale = act, up, down, skip_rescale
+        self.fir, self.fir_kernel = fir, tuple(fir_kernel)
+        self.fused_up = up and not fir and fuse_up
+        self.GroupNorm_0 = group_norm(in_ch, act)
+        self.Conv_0 = FusedUpConv(in_ch, out_ch, 3, quant=qconv) if self.fused_up \
+            else conv3x3(in_ch, out_ch, quant=qconv, dtype=dtype)
+        if temb_dim is not None:
+            self.Dense_0 = Dense(temb_dim, out_ch)
+        self.GroupNorm_1 = group_norm(out_ch, act)
+        self.Conv_1 = conv3x3(out_ch, out_ch, init_scale=init_scale, quant=qconv, dtype=dtype)
         if in_ch != out_ch or up or down:
             self.Conv_2 = FusedUpConv(in_ch, out_ch, 1, quant=qconv) if self.fused_up \
-                else conv1x1(in_ch, out_ch, quant=qconv)
+                else conv1x1(in_ch, out_ch, quant=qconv, dtype=dtype)
 
-    def forward(self, x, temb=None):
+    def _forward(self, x, temb=None):
         h = self.GroupNorm_0(x)
-        if self.up and not self.fused_up:
+        if self.up and self.fir:
+            h, x = R.upsample_2d(h, self.fir_kernel), R.upsample_2d(x, self.fir_kernel)
+        elif self.up and not self.fused_up:
             h, x = naive_upsample_2d(h), naive_upsample_2d(x)
+        elif self.down and self.fir:
+            h, x = R.downsample_2d(h, self.fir_kernel), R.downsample_2d(x, self.fir_kernel)
         elif self.down:
             h, x = naive_downsample_2d(h), naive_downsample_2d(x)
         h = self.Conv_0(h)
@@ -349,4 +485,4 @@ class ResnetBlockBigGANpp(nn.Module):
         h = self.Conv_1(h)
         if hasattr(self, "Conv_2"):
             x = self.Conv_2(x)
-        return x + h if not self.skip_rescale else (x + h) * _INV_SQRT2
+        return self._skip(x, h)

@@ -5,15 +5,21 @@ ordering exactly (``all_modules.{i}`` here is ``all_modules_{i}`` there), so
 ``models/convert.py`` maps the parameter trees one to one.  With
 ``compute_dtype="bfloat16"`` the body runs in bfloat16 in channels_last
 memory format; the STFT, the GroupNorm statistics and the output layer stay
-float32.
+float32, and so do the convs the JAX package builds without a dtype (the
+residual pyramids', the ddpm Upsample / Downsample and the last conv),
+which promote what follows them to float32 as flax does.
 
-Ported configuration space: ``resblock_type="biggan"`` without FIR
-resampling, ``progressive`` in {none, output_skip}, ``progressive_input`` in
-{none, input_skip}, fourier or positional embedding, ``dropout`` (the
-identity, as in the JAX package), the int8 ResBlock convolutions
-(``quantize_int8`` with ``quantize_accum``, ``quantize_bwd`` and
-``quantize_static``: kernel K10) and the fused up-convolutions
-(``fuse_resample``: K8).  Everything else raises NotImplementedError.
+The whole configuration space of the JAX package's NCSN++ is ported:
+``resblock_type`` biggan or ddpm (with the Upsample / Downsample between
+levels that ``resamp_with_conv`` configures), FIR resampling (``fir``,
+``fir_kernel``; float32 only: with ``compute_dtype="bfloat16"`` it raises,
+as the JAX package fails there), ``progressive`` none, output_skip or
+residual, ``progressive_input`` none, input_skip or residual, fourier or
+positional embedding, ``dropout`` (the identity, as in the JAX package),
+``remat`` (each ResBlock recomputed in the backward pass), the int8 BigGAN
+ResBlock convolutions (``quantize_int8`` with ``quantize_accum``,
+``quantize_bwd`` and ``quantize_static``: kernel K10) and the fused
+up-convolutions (``fuse_resample``: K8; nothing under FIR).
 
 ``NCSNppTimeModule`` wraps the U-Net with the 510/128 reflect STFT, the
 pad-frames-to-16 rule and the ISTFT cropped to the input length.
@@ -46,21 +52,23 @@ class NCSNpp(nn.Module):
                  image_size=256, embedding_type="fourier", input_channels=2,
                  spatial_channels=1, dropout=0.0, centered=True, discriminative=False,
                  compute_dtype=None, quantize_int8=False, quantize_accum="int32",
-                 quantize_bwd=False, quantize_static=False, fuse_resample=False):
+                 quantize_bwd=False, quantize_static=False, fuse_resample=False, remat=False):
         super().__init__()
-        if fir:
-            raise NotImplementedError("FIR resampling is not ported yet (ROADMAP.md §1, item 1)")
-        if resblock_type != "biggan":
-            raise NotImplementedError(
-                "the ddpm ResBlock is not ported yet (ROADMAP.md §1, item 3); resblock_type "
-                "must be 'biggan'")
-        if progressive not in ("none", "output_skip") or \
-                progressive_input not in ("none", "input_skip"):
-            raise NotImplementedError(
-                "residual skip pyramids are not ported yet (ROADMAP.md §1, item 4)")
+        if resblock_type not in ("ddpm", "biggan"):
+            raise ValueError(f"resblock type {resblock_type} unrecognized.")
+        if progressive not in ("none", "output_skip", "residual"):
+            raise ValueError(f"progressive {progressive!r}")
+        if progressive_input not in ("none", "input_skip", "residual"):
+            raise ValueError(f"progressive_input {progressive_input!r}")
+        if fir and _DTYPES[compute_dtype] is not None:
+            raise ValueError(
+                "fir=True with compute_dtype='bfloat16': the JAX package has no FIR path under a "
+                "bfloat16 body (its FIR convolution meets bfloat16 activations with a float32 "
+                "kernel and raises TypeError in lax.conv_general_dilated); run FIR in float32")
         # the int8 convolutions are the BigGAN ResBlocks' Conv_0, Conv_1 and
         # Conv_2; the attention NINs, Combine, the pyramid, input and output
-        # convs and Dense_0 stay float (buddy_tpu/models/ncsnpp.py:128-136)
+        # convs, Dense_0 and the ddpm ResBlocks stay float
+        # (buddy_tpu/models/ncsnpp.py:128-136)
         qcfg = (quantize_accum, quantize_bwd, quantize_static) if quantize_int8 else False
         if qcfg:
             L.quant_config(qcfg)
@@ -72,7 +80,7 @@ class NCSNpp(nn.Module):
         self.attn_resolutions = tuple(attn_resolutions)
         self.progressive, self.progressive_input = progressive, progressive_input
         self.embedding_type, self.centered = embedding_type, centered
-        self.skip_rescale = skip_rescale
+        self.skip_rescale, self.resblock_type = skip_rescale, resblock_type
         self.spatial_channels = spatial_channels
         self.compute_dtype = _DTYPES[compute_dtype]
         if discriminative:
@@ -85,11 +93,24 @@ class NCSNpp(nn.Module):
         combine = progressive_combine.lower()
         temb_dim = nf * 4 if time_conditional else None
 
+        f32 = torch.float32     # the JAX package's convs built without a dtype
+
         def resblock(in_ch, out_ch=None, up=False, down=False):
-            return L.ResnetBlockBigGANpp(act, in_ch, out_ch, up=up, down=down, dropout=dropout,
-                                         skip_rescale=skip_rescale, init_scale=init_scale,
-                                         temb_dim=temb_dim, qconv=qcfg,
-                                         fuse_up=fuse_resample)
+            # a float32 tensor reaches a ResBlock after a residual pyramid's
+            # sum; its convs run in the body's dtype all the same
+            common = dict(dropout=dropout, skip_rescale=skip_rescale, init_scale=init_scale,
+                          temb_dim=temb_dim, dtype=self.compute_dtype)
+            if resblock_type == "ddpm":
+                m = L.ResnetBlockDDPMpp(act, in_ch, out_ch, **common)
+            else:
+                m = L.ResnetBlockBigGANpp(act, in_ch, out_ch, up=up, down=down, fir=fir,
+                                          fir_kernel=fir_kernel, qconv=qcfg,
+                                          fuse_up=fuse_resample, **common)
+            m.remat = remat
+            return m
+
+        def resample(cls, in_ch, out_ch=None, with_conv=resamp_with_conv):
+            return cls(in_ch, out_ch, with_conv=with_conv, fir=fir, fir_kernel=fir_kernel)
 
         def attn(ch):
             return L.AttnBlockpp(ch, skip_rescale=skip_rescale, init_scale=init_scale)
@@ -107,6 +128,7 @@ class NCSNpp(nn.Module):
         modules.append(L.conv3x3(total_channels, nf))
         hs_c = [nf]
         in_ch = nf
+        input_pyramid_ch = total_channels
         for i_level in range(num_resolutions):
             for _ in range(num_res_blocks):
                 out_ch = nf * self.ch_mult[i_level]
@@ -116,15 +138,20 @@ class NCSNpp(nn.Module):
                     modules.append(attn(in_ch))
                 hs_c.append(in_ch)
             if i_level != num_resolutions - 1:
-                modules.append(resblock(in_ch, down=True))
+                modules.append(resample(L.Downsample, in_ch) if resblock_type == "ddpm"
+                               else resblock(in_ch, down=True))
                 if progressive_input == "input_skip":
-                    modules.append(L.Combine(total_channels, in_ch, method=combine))
+                    modules.append(L.Combine(input_pyramid_ch, in_ch, method=combine))
                     if combine == "cat":
                         in_ch *= 2
+                elif progressive_input == "residual":
+                    modules.append(resample(L.Downsample, input_pyramid_ch, in_ch, True))
+                    input_pyramid_ch = in_ch
                 hs_c.append(in_ch)
 
         in_ch = hs_c[-1]
         modules += [resblock(in_ch), attn(in_ch), resblock(in_ch)]
+        pyramid_ch = 0
 
         for i_level in reversed(range(num_resolutions)):
             for _ in range(num_res_blocks + 1):
@@ -136,12 +163,19 @@ class NCSNpp(nn.Module):
             if progressive == "output_skip":
                 modules.append(L.group_norm(in_ch))
                 modules.append(L.conv3x3(in_ch, total_channels, init_scale=init_scale))
+            elif progressive == "residual" and i_level == num_resolutions - 1:
+                modules.append(L.group_norm(in_ch))
+                modules.append(L.conv3x3(in_ch, in_ch, dtype=f32))
+            elif progressive == "residual":
+                modules.append(resample(L.Upsample, pyramid_ch, in_ch, True))
+            pyramid_ch = in_ch
             if i_level != 0:
-                modules.append(resblock(in_ch, up=True))
+                modules.append(resample(L.Upsample, in_ch) if resblock_type == "ddpm"
+                               else resblock(in_ch, up=True))
         assert not hs_c
         if progressive != "output_skip":
             modules.append(L.group_norm(in_ch))
-            modules.append(L.conv3x3(in_ch, total_channels, init_scale=init_scale))
+            modules.append(L.conv3x3(in_ch, total_channels, init_scale=init_scale, dtype=f32))
 
         self.all_modules = nn.ModuleList(modules)
         self.output_layer = nn.Conv2d(total_channels, 2 * spatial_channels, 1)
@@ -197,11 +231,16 @@ class NCSNpp(nn.Module):
                     m_idx += 1
                 hs.append(h)
             if i_level != num_resolutions - 1:
-                h = modules[m_idx](hs[-1], temb)
+                h = modules[m_idx](hs[-1]) if self.resblock_type == "ddpm" \
+                    else modules[m_idx](hs[-1], temb)
                 m_idx += 1
                 if self.progressive_input == "input_skip":
                     input_pyramid = L.naive_downsample_2d(input_pyramid)
                     h = modules[m_idx](input_pyramid, h)
+                    m_idx += 1
+                elif self.progressive_input == "residual":
+                    input_pyramid = self._skip(modules[m_idx](input_pyramid), h)
+                    h = input_pyramid
                     m_idx += 1
                 hs.append(h)
 
@@ -224,8 +263,16 @@ class NCSNpp(nn.Module):
                 m_idx += 2
                 pyramid = pyramid_h if pyramid is None else \
                     L.naive_upsample_2d(pyramid) + pyramid_h
+            elif self.progressive == "residual" and i_level == num_resolutions - 1:
+                pyramid = modules[m_idx + 1](act(modules[m_idx](h)))
+                m_idx += 2
+            elif self.progressive == "residual":
+                pyramid = self._skip(modules[m_idx](pyramid), h)
+                h = pyramid
+                m_idx += 1
             if i_level != 0:
-                h = modules[m_idx](h, temb)
+                h = modules[m_idx](h) if self.resblock_type == "ddpm" \
+                    else modules[m_idx](h, temb)
                 m_idx += 1
         assert not hs
 
@@ -239,6 +286,10 @@ class NCSNpp(nn.Module):
         h = self.output_layer(h.float())                      # (B, 2*spatial, F, T)
         s = self.spatial_channels
         return torch.complex(h[:, 0:s], h[:, s:2 * s]).contiguous()
+
+    def _skip(self, a, b):
+        """A residual pyramid's sum, rescaled by 1/sqrt(2) under skip_rescale."""
+        return (a + b) * _INV_SQRT2 if self.skip_rescale else a + b
 
 
 class NCSNppTimeModule(nn.Module):
@@ -271,9 +322,8 @@ def NCSNppTime(stft=None, device=None, seed: int = 0, **kwargs) -> NCSNppTimeMod
     int8 (K10) with its tuning keys ``quantize_accum``, ``quantize_bwd`` and
     ``quantize_static`` (calibrated scales: ``NetworkBundle.calibrate_quant``
     first), which change nothing while it is off; ``fuse_resample`` folds
-    nearest-up2 into the up-ResBlocks' convs (K8).  Neither changes the
-    weights.  ``remat``, a memory switch of the JAX package's training that
-    changes no value, is not ported (ROADMAP.md §1, item 2) and is ignored."""
+    nearest-up2 into the up-ResBlocks' convs (K8); ``remat`` recomputes each
+    ResBlock in the backward pass.  None of them changes the weights."""
     if stft is None:
         raise ValueError("stft must be provided")
     net_kwargs = {k: (tuple(v) if isinstance(v, list) else v)

@@ -105,7 +105,23 @@ Phases, each printing one line:
    the sm90 route > 0 and the mma route 0, by the wrappers' counts and by
    the profile's kernel names), the fused convs' calls (> 0 in the serving
    run), five WAV sets, and one profiled run each (device ms and launches a
-   step, K10's device ms, idle share) (run after phase 5).
+   step, K10's device ms, idle share) (run after phase 5);
+9. the rest of NCSN++'s configuration space at full width (nf=128,
+   ch_mult [1,2,2,2], 65536-sample utterances), after phase 7: FIR
+   resampling at the top up- and down-block shapes (float32), wrapper
+   against its zero-stuffing definition, forward and input vjp, timed
+   beside the byte bound; (a) ``Tester.do_test()`` in blind mode with
+   ``fir`` and both residual pyramids, float32 body, B=8, T=2, 10 operator
+   updates a step, WPE warm init: five WAV sets, sampler ms, K1's launches
+   a step (> 0), and a profiled run (device ms, launches and idle a step,
+   the FIR convolutions' device ms by kernel name); (b) the ddpm network
+   without pyramids trained at the shipped exp (batch 16 x 65536, float32,
+   deterministic cuDNN) for 3 steps with ``remat=false``, then 3 from the
+   same weights, batches and draws with ``remat=true``: a finite loss, the
+   gradients, parameters, EMA and moments bit for bit after every step, K1
+   in every step, ms a step and peak memory of each; (c) both
+   configurations at nf=16 card vs CPU: (a)'s network forward and input
+   vjp, (b)'s one train step (with remat).  Then the total seconds.
 
 A JSON line of the kernels' results precedes the last line (K1's float32
 rows from phase 6, their launches those of its training loop; K2's check
@@ -1439,27 +1455,27 @@ def wpe_warm_init(dev, wcfg) -> None:
         + json.dumps({k: [round(v[0], 4), v[1]] for k, v in split.items()}))
 
 
-def blind_tester(dev):
+def blind_tester(dev, steps: int = N_STEPS, network=("network.compute_dtype=bfloat16",),
+                 run_name: str = "blind"):
     """The main path's tester: blind, batched (one batch of 8 x 65536
-    samples), full width, bf16 body, full guidance, 10 operator updates a
-    step, WPE warm init, T = N_STEPS, on a paired test set written under
-    chiprun_out/.  Returns (args, net, tester, sampler_s, run): the sampler
-    call's wall seconds are appended to sampler_s, and run() is one
-    ``do_test()`` with the device synchronised."""
+    samples), full width, bf16 body (or the ``network`` overrides), full
+    guidance, 10 operator updates a step, WPE warm init, T = ``steps``, on a
+    paired test set written under chiprun_out/.  Returns (args, net, tester,
+    sampler_s, run): the sampler call's wall seconds are appended to
+    sampler_s, and run() is one ``do_test()`` with the device synchronised."""
     import torch
     data = write_paired_set(os.path.join(OUT_DIR, "smoke_data"),
                             load_wavs("clean", 8, 65536)[:, 0], seed=11)
-    args, net, tester = build_tester(dev, "blind_dereverberation_BUDDy", data, "blind", [
-        f"tester.sampling_params.T={N_STEPS}",
-        "network.compute_dtype=bfloat16",
+    args, net, tester = build_tester(dev, "blind_dereverberation_BUDDy", data, run_name, [
+        f"tester.sampling_params.T={steps}", *network,
         "tester.posterior_sampling.guidance_jacobian=full",
         "tester.posterior_sampling.blind_hp.op_updates_per_step=10",
         "tester.posterior_sampling.warm_initialization.mode=wpe_scaled",
         "tester.batched.use=True", "tester.batched.batch_size=8"])
-    log(f"main path: Tester.do_test(), blind, batched; NCSN++ nf={args['network']['nf']} "
-        f"ch_mult={list(args['network']['ch_mult'])} ({net.num_params / 1e6:.2f} M params, bf16 "
-        f"body), B=8 x 65536 samples, T={tester.sampler.T} steps, 10 operator updates/step, "
-        f"full guidance, WPE warm init")
+    log(f"{run_name}: Tester.do_test(), blind, batched; NCSN++ nf={args['network']['nf']} "
+        f"ch_mult={list(args['network']['ch_mult'])} ({net.num_params / 1e6:.2f} M params, "
+        f"compute_dtype {args['network']['compute_dtype']}), B=8 x 65536 samples, "
+        f"T={tester.sampler.T} steps, 10 operator updates/step, full guidance, WPE warm init")
     sampler_s = []
     inner = tester.sampler.predict_conditional_batched
 
@@ -1474,7 +1490,7 @@ def blind_tester(dev):
     tester.sampler.predict_conditional_batched = timed
 
     def run():
-        shutil.rmtree(os.path.join(args["model_dir"], "blind"), ignore_errors=True)
+        shutil.rmtree(os.path.join(args["model_dir"], run_name), ignore_errors=True)
         tester.do_test()
         torch.cuda.synchronize()
 
@@ -2164,10 +2180,10 @@ def training_clis(dev) -> None:
         f"{time.perf_counter() - t0:.1f} s")
 
 
-def train_step_card_vs_cpu(dev) -> None:
-    """One train step of the tiny network on the card (kernels) and on the
-    CPU (plain versions): the same weights (seed), batch and draws (a CPU
-    generator).  Gradients to 1e-4 of each leaf's peak (no less than 1e-6
+def train_step_card_vs_cpu(dev, network=TINY_TRAIN, label: str = "nf=8") -> None:
+    """One train step of a small network (``network``: the tiny one unless
+    given) on the card (kernels) and on the CPU (plain versions): the same
+    weights (seed), batch and draws (a CPU generator).  Gradients to 1e-4 of each leaf's peak (no less than 1e-6
     of the largest leaf's: the leaves whose sums cancel hold rounding);
     the moments accordingly; the parameters and EMA after Adam's first step
     lr g / (|g| + eps) to 1e-6 where |g| is 100 x above eps and the
@@ -2177,7 +2193,7 @@ def train_step_card_vs_cpu(dev) -> None:
     import torch
     from buddy_tpu_torch.sampling.euler_heun import NoiseSource
     batch = load_wavs("clean", 2, 16384)[:, 0]
-    over = [*TINY_TRAIN, "exp.batch_size=2", "exp.audio_len=16384", "exp.resume=False",
+    over = [*network, "exp.batch_size=2", "exp.audio_len=16384", "exp.resume=False",
             "logging.log=False", f"model_dir={os.path.join(OUT_DIR, 'train_runs', 'small')}"]
     out = []
     for d in (dev, torch.device("cpu")):
@@ -2211,7 +2227,7 @@ def train_step_card_vs_cpu(dev) -> None:
             worst[what] = max(worst[what], float(d.max()))
     rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
     check("card vs CPU train step loss (relative)", rel, 1e-5)
-    log(f"train step card vs CPU (nf=8, batch 2 x 16384, same weights, batch and draws): loss "
+    log(f"train step card vs CPU ({label}, batch 2 x 16384, same weights, batch and draws): loss "
         f"{card['loss']:.6f} / {cpu['loss']:.6f}; largest error / tolerance of gradients, mu, "
         f"nu {[round(worst[w], 3) for w in ('grads', 'mu', 'nu')]}, largest parameter and EMA "
         f"differences {worst['params']:.2e} / {worst['ema']:.2e}")
@@ -2724,6 +2740,287 @@ def small_int8_conv_checks(dev, shapes) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the rest of NCSN++'s configuration space at full width
+# ---------------------------------------------------------------------------
+# (a) FIR resampling with both residual skip pyramids, float32 body (the JAX
+# package has no FIR path under bfloat16); (b) the ddpm ResBlock without
+# pyramids, trained with and without remat
+FIR_NET = ["network.fir=true", "network.progressive=residual",
+           "network.progressive_input=residual"]
+DDPM_NET = ["network.resblock_type=ddpm", "network.progressive=none",
+            "network.progressive_input=none"]
+FIR_STEPS = 2                   # diffusion steps of run (a)
+REMAT_STEPS = 3                 # train steps of run (b), each way
+SMALL_NET = ["network.nf=16", "network.ch_mult=[1,2,2,2]", "network.num_res_blocks=1"]
+
+
+def fir_ops(prof) -> list:
+    """The profiled FIR convolutions: the ``aten::convolution`` /
+    ``aten::convolution_backward`` ops with a depthwise 4 x 4 weight (C, 1,
+    4, 4: the shipped fir_kernel's), which no other convolution of the
+    U-Net has (needs ``record_shapes``)."""
+    def fir(e):
+        return e.name in ("aten::convolution", "aten::convolution_backward") and any(
+            len(sh) == 4 and sh[1] == 1 and sh[2] == sh[3] == 4 for sh in e.input_shapes)
+    return [e for e in prof.events() if fir(e)]
+
+
+def fir_kernels_ms(prof) -> dict:
+    """{kernel name: [device ms, launches]} of the kernels the FIR
+    convolutions launched (forward and backward), from the kernels the
+    profiler attaches to each op and its children."""
+    found = {}
+
+    def walk(e):
+        for kern in e.kernels:
+            f = found.setdefault(kernel_name(kern.name), [0.0, 0])
+            f[0] += kern.duration / 1e3
+            f[1] += 1
+        for c in e.cpu_children:
+            walk(c)
+
+    for e in fir_ops(prof):
+        walk(e)
+    return found
+
+
+def fir_op_checks(dev) -> dict:
+    """FIR resampling at the top up- and down-block shapes of run (a),
+    float32 in channels_last: the wrapper (``upsample_2d`` / ``downsample_2d``,
+    one depthwise transposed / strided convolution) against its
+    zero-stuffing definition (``upfirdn2d_plain``), forward and input vjp,
+    each timed cold (CUDA events after an L2 flush) beside the byte bound
+    (input read once, output written once) and the operation bound (the
+    kernel's taps that meet a nonzero input, float32)."""
+    import torch
+    from buddy_tpu_torch.ops import resample as R
+    gen = torch.Generator().manual_seed(13)
+    out = {}
+    for what, shape in (("up", (8, 256, 128, 264)), ("down", (8, 128, 256, 528))):
+        x = torch.randn(shape, generator=gen).to(dev).contiguous(
+            memory_format=torch.channels_last)
+        if what == "up":
+            kern, args = R.fir_kernel((1, 3, 3, 1), 4.0), dict(up=2, pad=(2, 1))
+            call = lambda v: R.upsample_2d(v)
+        else:
+            kern, args = R.fir_kernel((1, 3, 3, 1), 1.0), dict(down=2, pad=(1, 1))
+            call = lambda v: R.downsample_2d(v)
+        plain = lambda v: R.upfirdn2d_plain(v, kern, **args)
+        xr = x.detach().requires_grad_(True)
+        y = call(xr)
+        g = torch.randn(y.shape, generator=gen).to(dev).contiguous(
+            memory_format=torch.channels_last)
+        (dx,) = torch.autograd.grad(y, xr, g)
+        xp = x.detach().requires_grad_(True)
+        yp = plain(xp)
+        (dxp,) = torch.autograd.grad(yp, xp, g)
+        tol_y, tol_dx = 1e-5 * float(yp.detach().abs().max()), 1e-5 * float(dxp.abs().max())
+        e_y, e_dx = max_err(y.detach(), yp.detach()), max_err(dx, dxp)
+        check(f"FIR {what} forward", e_y, tol_y)
+        check(f"FIR {what} input vjp", e_dx, tol_dx)
+        del yp, dxp, y, dx
+        n_bytes = 4 * (x.numel() + g.numel())
+        taps = (kern.shape[0] // 2) ** 2 if what == "up" else kern.numel()
+        b_ms, b_by = bound_ms(n_bytes, 2 * taps * g.numel())
+        bwd = lambda f: torch.autograd.grad(f(xr), xr, g)
+
+        def timed(f):
+            with torch.no_grad():
+                return cuda_ms(lambda: f(x), reps=10)
+
+        out[what] = {"x": list(shape), "y": list(g.shape),
+                     "err_fwd": e_y, "tol_fwd": tol_y, "err_vjp": e_dx, "tol_vjp": tol_dx,
+                     "ms_fwd": timed(call), "plain_ms_fwd": timed(plain),
+                     "ms_fwd_and_vjp": cuda_ms(lambda: bwd(call), reps=10),
+                     "plain_ms_fwd_and_vjp": cuda_ms(lambda: bwd(plain), reps=10),
+                     "bound_ms_fwd": b_ms, "bound_by": b_by, "bytes_fwd": n_bytes}
+        del x, xr, g
+        torch.cuda.empty_cache()
+    log("FIR resampling at run (a)'s top blocks (float32, channels_last; wrapper = one depthwise "
+        "library convolution, plain = zero-stuffing + pad + depthwise convolution; ms cold, CUDA "
+        "events; bound: input read once, output written once): " + json.dumps(out))
+    return out
+
+
+def fir_blind_run(dev, wrappers) -> dict:
+    """Run (a): ``Tester.do_test()`` in blind mode, B=8 x 65536, full width
+    with FIR resampling and both residual pyramids, float32 body, full
+    guidance, 10 operator updates a step, WPE warm init, T=FIR_STEPS:
+    the counts set to 0 just before the second run and read just after,
+    five WAV sets of 8 finite files, K1 launched in every step; then one
+    more run profiled (device ms, launches and idle a step; the FIR
+    convolutions' device ms by kernel name)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    args, net, tester, sampler_s, run = blind_tester(
+        dev, steps=FIR_STEPS, network=FIR_NET, run_name="fir_residual")
+    t0 = time.perf_counter()
+    run()
+    cold = time.perf_counter() - t0
+    for w in wrappers.values():
+        w.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    run()
+    launches = {name: w.launches for name, w in wrappers.items()}
+    check_outputs(tester, "blind_dereverberation", 8, 65536, blind=True)
+    k1_per_step = launches["groupnorm_silu_fwd"] / FIR_STEPS
+    if not k1_per_step > 0 or not launches["groupnorm_silu_bwd"] > 0:
+        raise AssertionError(f"run (a): K1 launches {launches}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
+        t1 = time.perf_counter()
+        run()
+        wall = (time.perf_counter() - t1) * 1e3
+    rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+            if e.self_device_time_total > 0 and e.device_type == torch.autograd.DeviceType.CUDA]
+    with open(os.path.join(OUT_DIR, "profile_fir_residual.txt"), "w") as f:
+        for name, ms, count in sorted(rows, key=lambda r: -r[1]):
+            f.write(f"{ms:12.3f} ms {count:8d}x  {name}\n")
+    device = sum(r[1] for r in rows)
+    fir = fir_kernels_ms(prof)
+    if not fir:
+        raise AssertionError("run (a): the profile shows no FIR convolution")
+    fir_ms = sum(v[0] for v in fir.values())
+    res = {"sampler_ms_per_step": round(sampler_s[1] / FIR_STEPS * 1e3, 1),
+           "device_ms_per_step": round(device / FIR_STEPS, 3),
+           "launches_per_step": round(sum(r[2] for r in rows) / FIR_STEPS, 1),
+           "idle_share": round(1 - device_busy_ms(prof) / wall, 4),
+           "k1_launches_per_step": [k1_per_step, launches["groupnorm_silu_bwd"] / FIR_STEPS],
+           "fir_device_ms_per_step": round(fir_ms / FIR_STEPS, 3),
+           "fir_share_of_device": round(fir_ms / device, 4), "peak_gib": round(peak, 2),
+           "cold_run_s": round(cold, 1)}
+    log(f"run (a): Tester.do_test(), blind, B=8 x 65536, NCSN++ nf={args['network']['nf']} "
+        f"{' '.join(FIR_NET)} ({net.num_params / 1e6:.2f} M params, float32 body), T={FIR_STEPS}, "
+        f"full guidance, 10 updates/step, WPE warm init: 5 directories x 8 finite WAVs, "
+        f"metrics.jsonl 8 lines; " + json.dumps(res))
+    log("run (a): the port's kernels' launches in the counted run: " + json.dumps(launches))
+    log("run (a) profile: the FIR convolutions' device ms a step by kernel [ms, launches a "
+        "step]: " + json.dumps({k: [round(v[0] / FIR_STEPS, 3), v[1] / FIR_STEPS]
+                               for k, v in sorted(fir.items(), key=lambda kv: -kv[1][0])}))
+    del net, tester
+    torch.cuda.empty_cache()
+    return res
+
+
+def remat_training(dev, wrappers) -> dict:
+    """Run (b): the ddpm network at full width trained at the shipped exp
+    (batch 16 x 65536, float32, deterministic cuDNN) for REMAT_STEPS steps
+    with ``remat=false``, then anew from the same weights (seed), batches
+    and draws with ``remat=true``: a finite loss, the gradients (as Adam
+    took them), parameters, EMA and moments after every step bit for bit
+    between the two; K1 launched in every step; ms a step and peak memory
+    of each."""
+    import numpy as np
+    import torch
+    from buddy_tpu_torch.sampling.euler_heun import NoiseSource
+    data = os.path.join(OUT_DIR, "train")
+    if not os.path.isdir(data):
+        write_train_set(data)
+    model_dir = os.path.join(OUT_DIR, "train_runs", "remat")
+    shutil.rmtree(model_dir, ignore_errors=True)
+    over = [f"dset.train.path={data}", "dset.train.speakers_test=[]",
+            "dset.train.speakers_discard=[]", f"exp.batch_size={TRAIN_BATCH}",
+            "exp.grad_accum=1", "exp.resume=False", "logging.log=False",
+            "tester=only_unconditional", f"model_dir={model_dir}", *DDPM_NET]
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    runs, batches = {}, None
+    for remat in (False, True):
+        torch.cuda.empty_cache()
+        trainer, loader = build_trainer(
+            dev, over + [f"network.remat={str(remat).lower()}"],
+            loader=None if batches is None else ReplayLoader(batches),
+            noise=NoiseSource(torch.Generator().manual_seed(9)))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        steps, ms, k1 = [], [], []
+        for _ in range(REMAT_STEPS):
+            before = wrappers["groupnorm_silu_fwd"].launches, wrappers["groupnorm_silu_bwd"].launches
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            trainer.train_step()
+            end.record()
+            torch.cuda.synchronize()
+            ms.append(start.elapsed_time(end))
+            k1.append((wrappers["groupnorm_silu_fwd"].launches - before[0],
+                       wrappers["groupnorm_silu_bwd"].launches - before[1]))
+            snap = {"grads": {k: p.grad.detach().cpu().clone() for k, p in trainer.params.items()
+                              if p.grad is not None}}
+            for what in ("params", "ema", "mu", "nu"):
+                snap[what] = {k: v.detach().cpu().clone() for k, v in getattr(trainer, what).items()}
+            snap["loss"] = float(trainer._metrics_acc["loss"])
+            steps.append(snap)
+            trainer.it += 1
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        blocks = sum(getattr(m, "remat", False) for m in trainer.module.modules())
+        if remat != (blocks > 0):
+            raise AssertionError(f"run (b): remat={remat} but {blocks} ResBlocks recompute")
+        if batches is None:
+            batches = loader.batches[:REMAT_STEPS]
+            loader.close()
+        runs[remat] = {"steps": steps, "ms": ms, "peak_gib": peak, "k1": k1,
+                       "params": trainer.total_params, "blocks": blocks}
+        del trainer
+    torch.backends.cudnn.deterministic = False
+    a, b = runs[False], runs[True]
+    losses = [s["loss"] for s in a["steps"]]
+    if not np.isfinite(losses).all() or any(min(c) == 0 for r in runs.values() for c in r["k1"]):
+        raise AssertionError(f"run (b): losses {losses}, K1 launches {a['k1']} / {b['k1']}")
+    for i, (sa, sb) in enumerate(zip(a["steps"], b["steps"])):
+        for what in ("grads", "params", "ema", "mu", "nu"):
+            if sa[what].keys() != sb[what].keys() or not sa[what] or \
+                    not all(torch.equal(sa[what][k], sb[what][k]) for k in sa[what]):
+                raise AssertionError(f"run (b): {what} after step {i} differ with remat")
+        if sa["loss"] != sb["loss"]:
+            raise AssertionError(f"run (b): loss after step {i}: {sa['loss']} / {sb['loss']}")
+    res = {f"remat_{str(r).lower()}": {
+        "ms_per_step": [round(v, 1) for v in runs[r]["ms"]],
+        "ms_per_step_after_the_first": round(float(np.mean(runs[r]["ms"][1:])), 1),
+        "peak_gib": round(runs[r]["peak_gib"], 2),
+        "k1_launches_per_step": runs[r]["k1"][-1]} for r in (False, True)}
+    log(f"run (b): the ddpm network ({' '.join(DDPM_NET)}; {a['params'] / 1e6:.2f} M params) "
+        f"trained at batch {TRAIN_BATCH} x 65536, float32, deterministic cuDNN, {REMAT_STEPS} "
+        f"steps with remat=false, then {REMAT_STEPS} from the same weights, batches and draws "
+        f"with remat=true ({b['blocks']} ResBlocks recomputed): losses (summed) "
+        f"{[round(v, 6) for v in losses]}, finite; gradients, parameters, EMA and moments after "
+        f"every step bit for bit equal; " + json.dumps(res))
+    return res
+
+
+def config_space_card_vs_cpu(dev) -> None:
+    """Run (c): (a)'s configuration at nf=16 (float32): the network's
+    forward and its vjp w.r.t. the waveform on the card (kernels) and on
+    the CPU (plain versions), the same weights (seed), inputs and
+    cotangent, to 1e-4 of the peak as the CPU parity tests hold a float32
+    network; and (b)'s configuration (with remat) at nf=16: one train step
+    card vs CPU, as phase 7's."""
+    import torch
+    from buddy_tpu_torch.config import compose, instantiate
+    gen = torch.Generator().manual_seed(14)
+    x = torch.from_numpy(load_wavs("degraded", 2, 16384))
+    cnoise = torch.tensor([-1.0, 0.3])
+    ct = torch.randn(x.shape, generator=gen)
+    outs = []
+    for d in (dev, torch.device("cpu")):
+        args = compose("conf_VCTK.yaml", SMALL_NET + FIR_NET)
+        net = instantiate(args["network"], device=d, seed=3)
+        xd = x.to(d).requires_grad_(True)
+        y = net(xd, cnoise.to(d))
+        (g,) = torch.autograd.grad(y, xd, ct.to(d))
+        outs.append((y.detach().cpu(), g.cpu()))
+    (yc, gc), (yp, gp) = outs
+    e_y, e_g = max_err(yc, yp), max_err(gc, gp)
+    check("run (c): FIR residual network forward, card vs CPU", e_y, 1e-4 * float(yp.abs().max()))
+    check("run (c): FIR residual network input vjp, card vs CPU", e_g,
+          1e-4 * float(gp.abs().max()))
+    log(f"run (c): {' '.join(FIR_NET)} at nf=16 (B=2 x 16384, float32): forward and input vjp, "
+        f"card vs CPU, max abs error {e_y:.3e} / {e_g:.3e} ({e_y / float(yp.abs().max()):.2e} / "
+        f"{e_g / float(gp.abs().max()):.2e} of the peak; tolerance 1e-4 of the peak)")
+    train_step_card_vs_cpu(dev, SMALL_NET + DDPM_NET + ["network.remat=true"],
+                           "nf=16, ddpm, remat")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2742,6 +3039,7 @@ def main() -> int:
                                      wpe_solve as K7)
 
     dev = resolve_device("cuda")
+    t_start = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout.strip() \
@@ -2839,6 +3137,12 @@ def main() -> int:
     small_reference(dev)
     small_int8 = small_reference_int8(dev)
     train_step_card_vs_cpu(dev)
+    t0 = time.perf_counter()
+    fir_op_checks(dev)
+    fir_blind_run(dev, wrappers)
+    remat_training(dev, wrappers)
+    config_space_card_vs_cpu(dev)
+    log(f"phase 9 (the rest of NCSN++'s configuration space) in {time.perf_counter() - t0:.1f} s")
 
     # K10's launches are those of the int8 dynamic run (quantize_bwd, fused
     # up-blocks: every wrapper; the sm90 route), the static run's beside
@@ -2870,6 +3174,7 @@ def main() -> int:
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": c["bound"][0],
                         "bound_by": c["bound"][1], "library_ms": lib_ms, "shape": c["shape"],
                         **c.get("extra", {})})
+    log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
