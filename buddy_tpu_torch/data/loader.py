@@ -7,6 +7,13 @@ loader (``runtime/loader.cpp``, ``NativeBatchLoader``) and its
 ``DeviceLoader`` (``jax.device_put`` one batch ahead) have no counterpart
 here (ROADMAP.md): ``make_train_loader`` always builds the threaded loader,
 which is the JAX package's own fallback.
+
+Under a mesh (``parallel/mesh.py``) every rank builds the same loader over
+the same files and seed, as the JAX package's one host reads the global
+batch; there is no per-rank split of the files.  The ranks' batches need
+not agree (the crops come from numpy's global generator, which a test set
+built while the thread draws reseeds), so the trainer takes the first
+rank's batch on every rank (one broadcast a step) and keeps its rows.
 """
 
 from __future__ import annotations

@@ -2,6 +2,7 @@
 
 Entry points run on the card unless the caller asks for the CPU: with no
 ``device`` and no CUDA they raise instead of carrying on quietly on the CPU.
+Under ``torchrun`` each rank runs on its own card (``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -10,13 +11,14 @@ import torch
 
 
 def resolve_device(device=None) -> torch.device:
-    """``None`` means the first CUDA card; a CPU run must be asked for."""
+    """``None`` means the current CUDA card (the first, or the rank's card
+    that ``parallel.init_distributed`` set); a CPU run must be asked for."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "buddy_tpu_torch runs on a CUDA device; no CUDA device is "
                 "available (pass device='cpu' to run the plain versions)")
-        device = "cuda"
+        device = torch.device("cuda", torch.cuda.current_device())
     device = torch.device(device)
     if device.type == "cuda":
         set_float32_precision()

@@ -207,11 +207,13 @@ class BlindSubbandFiltering(SubbandFiltering):
         return factors
 
     # --- filter design ---------------------------------------------------
-    def design_filter(self, params) -> torch.Tensor:
+    def design_filter(self, params, correct_OLA: bool = True) -> torch.Tensor:
         """The magnitude A (..., F, Nf) alone: multi-exponential decays -> log
-        -> linear interpolation across the EQ breakpoints -> exp, OLA and
-        direct-path corrections (the plain version of K6 without its phasor)."""
-        return design_plain(params["decay"], params["weights"], self._design_geometry, self.Nf)
+        -> linear interpolation across the EQ breakpoints -> exp, the OLA
+        correction (unless ``correct_OLA`` is False) and the direct-path
+        correction (the plain version of K6 without its phasor)."""
+        return design_plain(params["decay"], params["weights"], self._design_geometry, self.Nf,
+                            correct_ola=correct_OLA)
 
     def cons(self, X: torch.Tensor, length: int) -> torch.Tensor:
         """Consistency projection: pad frames -> ISTFT -> minimum phase ->
@@ -242,6 +244,41 @@ class BlindSubbandFiltering(SubbandFiltering):
         coherent" initialisation."""
         N = self.stft(noise) / self.op_stft.win_energy_sqrt
         return torch.angle(N[..., 1:])
+
+    def noise_coherent_init(self, noise) -> None:
+        """The "random but coherent" phases for the decays and weights of
+        ``self.params``: design A, take the phases of white noise's STFT,
+        project A e^{i phases} through ``cons``, and keep the projected H and
+        its phases on ``self.H`` and ``self.params``.  ``noise`` is the white
+        noise (hop*Nf,) or a ``torch.Generator`` to draw it from."""
+        if isinstance(noise, torch.Generator):
+            noise = torch.randn((self.length_rir,), generator=noise, device=noise.device)
+        with torch.no_grad():
+            A = self.design_filter(self.params)
+            H = A * torch.exp(1j * self.get_noise_phases(noise.to(self.device)))
+            H = self.cons(H, length=self.length_rir)
+        self.params = dict(self.params, phases=torch.angle(H))
+        self.H = H
+
+    def update_H(self, rir=None, H=None, use_noise: bool = False, noise=None,
+                 phases=None) -> None:
+        """A known RIR or filter (the informed operator's ``update_H``); else,
+        with ``use_noise``, ``noise_coherent_init(noise)`` (a generator
+        seeded 1 when no noise is given); else H from ``self.params``, its
+        phases replaced by ``phases`` where given."""
+        if rir is not None or H is not None:
+            super().update_H(rir=rir, H=H)
+            return
+        if use_noise:
+            self.noise_coherent_init(noise if noise is not None
+                                     else torch.Generator().manual_seed(1))
+            return
+        if phases is not None:
+            if not isinstance(phases, torch.Tensor):
+                phases = torch.from_numpy(np.array(phases, np.float32))
+            self.params = dict(self.params, phases=phases.to(self.device, torch.float32))
+        with torch.no_grad():
+            self.H = self.compute_H(self.params)
 
     def reset_batched(self, batch: int, generator: torch.Generator | None = None,
                       noise: torch.Tensor | None = None):

@@ -81,10 +81,13 @@ def _interp_log(env, geom: FilterDesignGeometry):
     return full, torch.exp(geom.interp_mat @ torch.log(full + 1e-6))
 
 
-def design_plain(decay, weights, geom: FilterDesignGeometry, Nf: int) -> torch.Tensor:
-    """The magnitude A alone (no phasor): (..., E, bands) -> (..., F, Nf)."""
+def design_plain(decay, weights, geom: FilterDesignGeometry, Nf: int,
+                 correct_ola: bool = True) -> torch.Tensor:
+    """The magnitude A alone (no phasor): (..., E, bands) -> (..., F, Nf);
+    without the OLA factors where ``correct_ola`` is False."""
     _, _, env = _envelope_terms(decay, weights, Nf)
-    return (_interp_log(env, geom)[1] + 1e-6) * geom.ola + geom.dpc
+    A = _interp_log(env, geom)[1] + 1e-6
+    return (A * geom.ola if correct_ola else A) + geom.dpc
 
 
 def filter_design_plain(decay, weights, phases, geom: FilterDesignGeometry) -> torch.Tensor:

@@ -40,6 +40,29 @@ class NoiseSource:
         return torch.rand(shape, generator=g, device=g.device).to(device)
 
 
+class ShardedNoise:
+    """The draws of a batch split over ``count`` ranks: each call draws the
+    global batch (``count`` times the rows asked for) from ``inner`` and
+    hands out the ``index``-th of its ``count`` equal shares of rows, so
+    that every row gets the draws it gets in a one-process run of the
+    global batch.  Every draw a sampler,
+    an operator reset or the trainer asks for leads with the batch axis."""
+
+    def __init__(self, inner, index: int, count: int):
+        self.inner, self.index, self.count = inner, int(index), int(count)
+
+    def _rows(self, draw, shape, device):
+        b = shape[0]
+        full = draw((b * self.count,) + tuple(shape[1:]), device)
+        return full[self.index * b:(self.index + 1) * b]
+
+    def normal(self, kind: str, shape, device) -> torch.Tensor:
+        return self._rows(lambda s, d: self.inner.normal(kind, s, d), shape, device)
+
+    def uniform(self, kind: str, shape, device) -> torch.Tensor:
+        return self._rows(lambda s, d: self.inner.uniform(kind, s, d), shape, device)
+
+
 class Sampler:
     """Owns the model (a callable ``(x, cnoise) -> x̂``), the EDM
     parameterisation, the config and the device."""
@@ -124,8 +147,19 @@ class EulerHeunSampler(Sampler):
             x = self._step(x, t[i], t[i + 1], gamma[i], noise)
         return x
 
-    def predict_unconditional(self, shape, noise=None, **_ignored) -> torch.Tensor:
-        return self.predict(shape, noise=noise)
+    def predict_unconditional(self, shape, noise=None, sharding=None,
+                              **_ignored) -> torch.Tensor:
+        """``shape`` = (B, n) samples; with ``sharding`` (``parallel.
+        batch_sharding``) this rank samples its rows of the B, from the
+        global batch's draws, and returns them."""
+        if sharding is None or sharding.mesh.shape["dp"] == 1:
+            return self.predict(shape, noise=noise)
+        noise = noise if noise is not None else self.default_noise()
+        mesh = sharding.mesh
+        rows = sharding.block(shape)[0]
+        local = (rows.stop - rows.start,) + tuple(shape[1:])
+        return self.predict(local, noise=ShardedNoise(noise, mesh.coords["dp"],
+                                                      mesh.shape["dp"]))
 
     def predict_conditional(self, *args, **kwargs):
         raise NotImplementedError

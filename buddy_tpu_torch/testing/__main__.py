@@ -6,7 +6,10 @@
 
 Runs on the first CUDA device; ``device=cpu`` asks for the CPU (the plain
 versions of the kernels).  Relative ``model_dir`` and checkpoint paths are
-taken from the directory that holds the package.
+taken from the directory that holds the package.  On several cards, one rank
+a card (batches split over the ranks, ``testing/tester.py``):
+
+    torchrun --standalone --nproc_per_node=<cards> -m buddy_tpu_torch.testing ...
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ def _main(args, device=None):
     from buddy_tpu_torch.config import instantiate
     from buddy_tpu_torch.device import resolve_device
     from buddy_tpu_torch.models import NetworkBundle
+    from buddy_tpu_torch.parallel.mesh import describe
     from buddy_tpu_torch.testing.tester import Tester
 
     device = resolve_device(device)
@@ -45,6 +49,7 @@ def _main(args, device=None):
     print(f"Experiment:              {args['exp']['exp_name']}")
     print(f"Sampler:                 {args['tester']['sampler']['_target_']}")
     print(f"Checkpoint:              {args['tester']['checkpoint']}")
+    print(f"Ranks:                   {describe()}")
     print()
 
     checkpoint = args["tester"]["checkpoint"]
@@ -62,8 +67,15 @@ def _main(args, device=None):
 
 def main(argv=None):
     from buddy_tpu_torch.config import compose, parse_cli
-    config_name, overrides, device = parse_cli(argv if argv is not None else sys.argv[1:])
-    _main(compose(config_name, overrides), device=device)
+    from buddy_tpu_torch.parallel import init_distributed
+    distributed = init_distributed()
+    try:
+        config_name, overrides, device = parse_cli(argv if argv is not None else sys.argv[1:])
+        _main(compose(config_name, overrides), device=device)
+    finally:
+        if distributed:
+            import torch.distributed as dist
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -18,8 +18,19 @@ draws and ``reset_noise`` for the phase noise of the operator resets, each a
 ``NoiseSource`` over a CPU generator made from ``seed`` (42 by default), so
 a run on the card and a run on the CPU see the same draws.
 
-The JAX package's sharding of a batch over a device mesh is not ported (the
-``parallel`` package is later work): every batch runs on the one device.
+Ranks (``parallel/mesh.py``): with more than one rank the tester holds a dp
+mesh over the world (inside the trainer, the trainer's mesh, whose dp axis
+it uses).  Where ``tester.batched.shard`` (the default) and the batch size
+divides over dp, each rank runs its B/dp utterances of every batch that
+divides, drawing the global batch's noise and phase noise and keeping its
+rows (``ShardedNoise``), so that each utterance's result does not depend on
+dp; the first rank of each dp line gathers the predictions and the
+estimated RIRs (as CPU tensors).  A tail batch that does not divide, the
+serial and the chunked paths run whole on every rank from the same draws,
+as they run unsharded in the JAX package.  Unconditional sampling shards
+when ``num_samples`` divides over dp, else every rank samples the whole
+batch.  The first rank alone makes the directories and writes the WAV sets,
+the metrics and the ``.argv``.
 """
 
 from __future__ import annotations
@@ -36,7 +47,8 @@ from buddy_tpu_torch.config import instantiate, save_config
 from buddy_tpu_torch.device import resolve_device
 from buddy_tpu_torch.operators.reverb import RIROperator
 from buddy_tpu_torch.operators.subband import BlindSubbandFiltering
-from buddy_tpu_torch.sampling.euler_heun import NoiseSource
+from buddy_tpu_torch.parallel import mesh as pmesh
+from buddy_tpu_torch.sampling.euler_heun import NoiseSource, ShardedNoise
 from buddy_tpu_torch.utils.log import write_audio_file
 
 _RIR_BUCKET = 4096      # true RIRs are zero-padded to a multiple of this many samples
@@ -68,6 +80,14 @@ class Tester:
         self.bucket = int(args["tester"].get("bucket_pad", 16384))
         self.sampler = instantiate(args["tester"]["sampler"], self.network, self.diff_params,
                                    self.args, device=self.device)
+        # every rank builds its tester, so every rank makes the mesh's groups;
+        # the trainer hands the in-training tester its own mesh
+        self.mesh = pmesh.make_mesh(pmesh.world_size()) \
+            if pmesh.world_size() > 1 and not in_training else None
+        self.writer = pmesh.global_rank() == 0
+
+    def _dp(self) -> int:
+        return 1 if self.mesh is None else self.mesh.shape["dp"]
 
     # --- checkpoints -----------------------------------------------------
     def load_checkpoint(self, path: str) -> bool:
@@ -92,8 +112,14 @@ class Tester:
         tcfg = self.args["tester"]
         audio_len = int(tcfg["unconditional"].get("audio_len", self.args["exp"]["audio_len"]))
         shape = (int(tcfg["unconditional"]["num_samples"]), audio_len)
-        preds = _numpy(self.sampler.predict_unconditional(shape, noise=self.noise))
-        if not self.in_training:
+        sharding = None
+        if self._dp() > 1 and shape[0] % self._dp() == 0:
+            sharding = pmesh.batch_sharding(self.mesh)
+        preds = self.sampler.predict_unconditional(shape, noise=self.noise, sharding=sharding)
+        if sharding is not None:                    # the whole batch on the first rank
+            preds = pmesh.gather_rows(self.mesh, preds)
+        preds = None if preds is None else _numpy(preds)
+        if not self.in_training and self.writer:
             for i in range(len(preds)):
                 write_audio_file(preds[i], self.args["exp"]["sample_rate"],
                                  f"unconditional_{i}", path=self.paths["unconditional"])
@@ -181,11 +207,12 @@ class Tester:
                                      sample_rate=self.args["exp"]["sample_rate"],
                                      device=self.device)
 
-    def _reset(self, operator, batch: int | None = None):
-        """Fresh operator state from the tester's reset noise: batched
-        (params, H) for ``batch`` utterances, or in place for one."""
+    def _reset(self, operator, batch: int | None = None, reset_noise=None):
+        """Fresh operator state from the tester's reset noise (or
+        ``reset_noise``): batched (params, H) for ``batch`` utterances, or in
+        place for one."""
         shape = (batch or 1, operator.length_rir)
-        noise = self.reset_noise.normal("reset", shape, self.device)
+        noise = (reset_noise or self.reset_noise).normal("reset", shape, self.device)
         if batch is None:
             return operator.reset(noise=noise[0])
         return operator.reset_batched(batch, noise=noise)
@@ -230,39 +257,56 @@ class Tester:
 
     def test_dereverberation_batched(self, mode, blind: bool = False):
         """Batched full-test-set dereverberation: each group of utterances
-        runs through ``predict_conditional_batched`` as one batch."""
+        runs through ``predict_conditional_batched`` as one batch, split
+        over the ranks where it divides (the module's docstring)."""
         tcfg = self.args["tester"]
         scaling = float(tcfg["posterior_sampling"]["warm_initialization"]["scaling_factor"])
         batch_size = int(tcfg["batched"].get("batch_size", 4))
         chunk_threshold = int(tcfg.get("chunked", {}).get("threshold", 163840))
         operator_blind = self._blind_operator() if blind else None
+        dp = self._dp()
+        mesh = self.mesh if tcfg["batched"].get("shard", True) and dp > 1 \
+            and batch_size % dp == 0 else None
 
         items = [self._prepare_item(i, scaling) for i in range(len(self.test_set))]
         long_items = [it for it in items if it[5] > chunk_threshold]
         items = [it for it in items if it[5] <= chunk_threshold]
 
         for n_pad, batch in self._group_items(items, blind, batch_size):
-            ys = np.zeros((len(batch), 1, n_pad), np.float32)
-            for b, it in enumerate(batch):
+            noise, reset_noise, mine = self.noise, self.reset_noise, batch
+            shard = mesh is not None and len(batch) % dp == 0
+            if shard:                       # this rank's rows, the global batch's draws
+                r = mesh.coords["dp"]
+                noise, reset_noise = ShardedNoise(noise, r, dp), ShardedNoise(reset_noise, r, dp)
+                mine = batch[pmesh.batch_sharding(mesh).block((len(batch),))[0]]
+            ys = np.zeros((len(mine), 1, n_pad), np.float32)
+            for b, it in enumerate(mine):
                 ys[b, :, :it[5]] = it[3][:, :it[5]]
             ys = torch.from_numpy(ys).to(self.device)
             if blind:
                 operator = operator_blind
-                op_params_b, H_b = self._reset(operator, len(batch))
+                op_params_b, H_b = self._reset(operator, len(mine), reset_noise)
                 preds = self.sampler.predict_conditional_batched(
-                    ys, operator, blind=True, noise=self.noise,
+                    ys, operator, blind=True, noise=noise,
                     op_params_batch=op_params_b, H_batch=H_b)
+                est = torch.stack([operator.get_time_RIR(H=operator.H[b])
+                                   for b in range(len(mine))])
             else:
-                operator = batch[0][7]                       # any RIROperator
-                H_b = torch.from_numpy(np.stack([it[2] for it in batch])).to(self.device)
+                operator = mine[0][7]                        # any RIROperator
+                H_b = torch.from_numpy(np.stack([it[2] for it in mine])).to(self.device)
                 preds = self.sampler.predict_conditional_batched(
-                    ys, operator, blind=False, noise=self.noise, H_batch=H_b)
+                    ys, operator, blind=False, noise=noise, H_batch=H_b)
+                est = None
+            if shard:
+                preds = pmesh.gather_rows(mesh, preds)
+                est = None if est is None else pmesh.gather_rows(mesh, est)
+            if not self.writer:
+                continue
             preds = _numpy(preds)
             for b, it in enumerate(batch):
                 seg, rir, _rp, y, filename, n, _np, _op = it
-                est = _numpy(operator.get_time_RIR(H=operator.H[b])) if blind else None
                 self._write_item_outputs(mode, seg, y, preds[b, ..., :n], rir, filename,
-                                         est_rir=est)
+                                         est_rir=None if est is None else _numpy(est[b]))
 
         for it in long_items:                                # serial chunked path
             seg, rir, _rp, y, filename, n, _npad, operator_ref = it
@@ -271,7 +315,8 @@ class Tester:
                 self._reset(operator)
             pred = self._predict_chunked(y, operator, blind, n)
             est = _numpy(operator.get_time_RIR(H=operator.H)) if blind else None
-            self._write_item_outputs(mode, seg, y, pred, rir, filename, est_rir=est)
+            if self.writer:
+                self._write_item_outputs(mode, seg, y, pred, rir, filename, est_rir=est)
 
     def test_dereverberation(self, mode, blind: bool = False):
         if self.test_set is None:
@@ -300,7 +345,8 @@ class Tester:
                 pred = _numpy(self.sampler.predict_conditional(
                     y_padded, operator, blind=blind, noise=self.noise))[..., :n]
             est_rir = _numpy(operator.get_time_RIR(H=operator.H)) if blind else None
-            self._write_item_outputs(mode, seg, y, pred, rir, filename, est_rir=est_rir)
+            if self.writer:
+                self._write_item_outputs(mode, seg, y, pred, rir, filename, est_rir=est_rir)
 
     # --- directory layout ----------------------------------------------------
     def prepare_directories(self, mode, unconditional: bool = False):
@@ -336,19 +382,19 @@ class Tester:
         for m in self.args["tester"]["modes"]:
             if m == "unconditional":
                 print("testing unconditional")
-                if not self.in_training:
+                if not self.in_training and self.writer:
                     self.prepare_directories(m, unconditional=True)
                     self.save_experiment_args(m)
                 return self.sample_unconditional(m)
             elif m == "informed_dereverberation":
                 print("testing informed dereverberation")
-                if not self.in_training:
+                if not self.in_training and self.writer:
                     self.prepare_directories(m)
                     self.save_experiment_args(m)
                 self.test_dereverberation(m)
             elif m == "blind_dereverberation":
                 print("testing blind dereverberation")
-                if not self.in_training:
+                if not self.in_training and self.writer:
                     self.prepare_directories(m)
                     self.save_experiment_args(m)
                 self.test_dereverberation(m, blind=True)

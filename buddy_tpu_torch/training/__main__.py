@@ -9,7 +9,9 @@ samples as trained: ``tester.sampling_params.same_as_training``) and the
 trainer, and runs the training loop.  Runs on the first CUDA device;
 ``device=cpu`` asks for the CPU (the plain versions of the kernels).  A
 relative ``model_dir`` is taken from the directory that holds the package;
-it is made if missing.
+it is made if missing.  On several cards, one rank a card (``exp.mesh``):
+
+    torchrun --standalone --nproc_per_node=<cards> -m buddy_tpu_torch.training ...
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ def _main(args, device=None):
     from buddy_tpu_torch.data.loader import make_train_loader
     from buddy_tpu_torch.device import resolve_device
     from buddy_tpu_torch.models import NetworkBundle
+    from buddy_tpu_torch.parallel.mesh import describe
     from buddy_tpu_torch.testing.tester import Tester
 
     device = resolve_device(device)
@@ -57,6 +60,7 @@ def _main(args, device=None):
     print(f"Diffusion parameterization:  {args['diff_params']['_target_']}")
     print(f"Batch size:              {args['exp']['batch_size']}")
     print(f"Device:                  {device}")
+    print(f"Ranks:                   {describe()}")
     print()
 
     try:
@@ -67,8 +71,15 @@ def _main(args, device=None):
 
 def main(argv=None):
     from buddy_tpu_torch.config import compose, parse_cli
-    config_name, overrides, device = parse_cli(argv if argv is not None else sys.argv[1:])
-    _main(compose(config_name, overrides), device=device)
+    from buddy_tpu_torch.parallel import init_distributed
+    distributed = init_distributed()
+    try:
+        config_name, overrides, device = parse_cli(argv if argv is not None else sys.argv[1:])
+        _main(compose(config_name, overrides), device=device)
+    finally:
+        if distributed:
+            import torch.distributed as dist
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -1,4 +1,5 @@
-"""The EDM trainer (``buddy_tpu/training/trainer.py``) on one device.
+"""The EDM trainer (``buddy_tpu/training/trainer.py``), on one card or
+data-parallel over the ranks of a torch.distributed mesh.
 
 An endless loop of {denoising loss -> gradients -> global-norm clip -> Adam
 -> EMA with a linear rampup}, with checkpoints every ``save_interval``
@@ -35,8 +36,28 @@ NoiseSource``) over a CPU ``torch.Generator`` seeded with ``exp.seed``, so a
 run on the card and one on the CPU draw the same numbers; its state is saved
 with each checkpoint.  ``exp.lr_rampup_it``, ``exp.scheduler_*`` and
 ``exp.precision`` are read by neither package's trainer: the learning rate is
-constant.  The JAX package's device mesh (``exp.mesh``) is not ported: the
-trainer runs on one device.
+constant.
+
+The mesh (``exp.mesh``, ``parallel/mesh.py``) is built as the JAX trainer
+builds it: dp=-1 takes every rank left after sp, and dp shrinks until the
+batch divides; a rank outside the mesh says so and leaves the loop without
+joining a collective.  Every rank takes the mesh's first rank's global
+batch (one broadcast a step, so that the ranks' loaders need not agree) and
+draws the global batch's noise levels and noise from the same seeded source,
+and keeps its rows (``parallel.shard_batch``): a dp=2 run draws what a dp=1
+run draws.  Each rank's loss is the mean over its rows; the gradients, the
+loss and the sigma-bin sums are summed over the dp group in one flat buffer
+(one collective a step) and scaled to the global batch's mean, so the clip,
+Adam and the EMA then run replicated, equal inputs giving equal bits on
+every rank, and the metrics stay on the device until log time.
+``exp.grad_accum`` splits each rank's share.  With sp > 1 every rank of an
+sp line runs its dp rows whole, as the JAX package lets GSPMD all-gather the
+time axis: sp spreads neither the input nor the compute here
+(``parallel.waveform_sharding``); the gradient sum over the dp group counts
+each row once.
+The first rank alone writes checkpoints, ``train_log.jsonl`` and samples;
+the mesh then meets at a barrier.  Resume reads on every rank.  tp > 1
+raises (``parallel.make_mesh``).
 """
 
 from __future__ import annotations
@@ -51,7 +72,8 @@ import torch.nn.functional as F
 
 from buddy_tpu_torch.device import resolve_device
 from buddy_tpu_torch.models.convert import from_jax_params, to_jax_params
-from buddy_tpu_torch.sampling.euler_heun import NoiseSource
+from buddy_tpu_torch.parallel import mesh as pmesh
+from buddy_tpu_torch.sampling.euler_heun import NoiseSource, ShardedNoise
 from buddy_tpu_torch.training import checkpoint as ckpt
 from buddy_tpu_torch.training import stats
 from buddy_tpu_torch.utils import log as utils_logging
@@ -80,17 +102,31 @@ class Trainer:
         self.grad_accum = int(exp.get("grad_accum", 1) or 1)
         assert self.batch_size % self.grad_accum == 0, \
             f"batch_size {self.batch_size} % grad_accum {self.grad_accum}"
-        mesh = exp.get("mesh", {})
-        if any(int(mesh.get(k, 1) or 1) > 1 for k in ("dp", "tp", "sp")):
-            raise NotImplementedError(
-                f"exp.mesh {dict(mesh)}: the device mesh is not ported (ROADMAP.md, parallel); "
-                "the trainer runs on one device")
+        mesh_cfg = exp.get("mesh", {}) or {}
+        tp = int(mesh_cfg.get("tp", 1) or 1)
+        sp = int(mesh_cfg.get("sp", 1) or 1)
+        dp = int(mesh_cfg.get("dp", -1))
+        if dp in (-1, 0):
+            dp = pmesh.world_size() // (max(tp, 1) * max(sp, 1))
+        while dp > 1 and self.batch_size % dp != 0:     # the batch divides over dp
+            dp -= 1
+        self.mesh = pmesh.make_mesh(dp, tp, sp)
+        self.dp = self.mesh.shape["dp"]
+        if (self.batch_size // self.dp) % self.grad_accum:
+            raise ValueError(f"each rank's {self.batch_size // self.dp} rows do not split "
+                             f"into grad_accum={self.grad_accum} microbatches")
+        self.writer = pmesh.global_rank() == 0
+        if tester is not None:      # heavy_logging's samples shard over this mesh's dp
+            tester.mesh = self.mesh if self.mesh.size > 1 else None
         opt_cfg = exp["optimizer"]
         self.lr = float(opt_cfg["lr"])
         self.b1, self.b2 = float(opt_cfg["betas"][0]), float(opt_cfg["betas"][1])
         self.eps = float(opt_cfg["eps"])
         self.noise = noise if noise is not None else \
             NoiseSource(torch.Generator().manual_seed(self.seed))
+        # the global batch's draws, this rank's rows
+        self._draws = self.noise if self.dp == 1 else \
+            ShardedNoise(self.noise, self.mesh.coords["dp"] if self.mesh.in_mesh else 0, self.dp)
 
         # the module holds the trained weights; the EMA and Adam's moments
         # cover every parameter, the frozen ones too (their moments stay 0),
@@ -103,6 +139,7 @@ class Trainer:
         if wrong:
             raise ValueError(f"parameters {wrong[:3]}... are not on {self.device}")
         self.trainable = [n for n, p in self.params.items() if p.requires_grad]
+        pmesh.shard_params(self.mesh, self.params.values())
         with torch.no_grad():
             self.ema = {n: p.detach().clone() for n, p in self.params.items()}
             self.mu = {n: torch.zeros_like(p) for n, p in self.params.items()}
@@ -113,9 +150,9 @@ class Trainer:
         self.total_params = self.network.num_params
         print("total_params: ", self.total_params / 1e6, "M")
         log_cfg = args["logging"]
-        if log_cfg.get("print_model_summary", False):
-            raise NotImplementedError("logging.print_model_summary: utils/summary.py is not "
-                                      "ported (ROADMAP.md, utilities)")
+        if log_cfg.get("print_model_summary", False) and self.writer:
+            from buddy_tpu_torch.utils.summary import print_model_summary
+            print_model_summary(dict(self.module.named_parameters()))
 
         # sigma bins for the loss-by-sigma statistics
         dp_hp = args["diff_params"]["sde_hp"]
@@ -139,7 +176,7 @@ class Trainer:
 
         self.wandb_run = None
         self._wandb = None
-        if log_cfg.get("log", False) and log_cfg.get("wandb", {}).get("entity"):
+        if log_cfg.get("log", False) and log_cfg.get("wandb", {}).get("entity") and self.writer:
             try:        # optional, as in the JAX package
                 import wandb
             except ImportError:
@@ -174,16 +211,20 @@ class Trainer:
         return one_hot.T @ per, one_hot.T @ (per * per), one_hot.sum(0)
 
     def get_batch(self) -> torch.Tensor:
+        """This rank's rows of the mesh's first rank's global batch."""
         batch = self.dset.next_batch() if hasattr(self.dset, "next_batch") \
             else next(self.dset)
-        return torch.from_numpy(np.asarray(batch, np.float32)).to(self.device)
+        x = torch.from_numpy(np.asarray(batch, np.float32)).to(self.device)
+        pmesh.replicate(self.mesh, [x])
+        return pmesh.shard_batch(self.mesh, x)
 
     def _gradients(self, batch):
         """Loss, (bin sums, bin sums of squares, bin counts) and the
-        gradients (averaged over the microbatches) in the parameters' .grad."""
+        gradients (averaged over the microbatches and the dp group's rows) in
+        the parameters' .grad."""
         diff, accum = self.diff_params, self.grad_accum
-        t = diff.sample_time_training(self.noise, batch.shape[0], self.device)
-        n = diff.sample_prior(self.noise, batch.shape, self.device)
+        t = diff.sample_time_training(self._draws, batch.shape[0], self.device)
+        n = diff.sample_prior(self._draws, batch.shape, self.device)
         for name in self.trainable:
             self.params[name].grad = None
         loss, bins = 0.0, None
@@ -196,10 +237,16 @@ class Trainer:
                 b = self._bin_stats(error.detach(), diff._std(t_mb))
                 bins = b if bins is None else tuple(u + v for u, v in zip(bins, b))
                 loss = loss + loss_mb.detach()
-        if accum > 1:
-            inv = float(np.float32(1.0 / accum))
+        grads = [self.params[n].grad for n in self.trainable]
+        group = self.mesh.groups["dp"]
+        if group is not None:           # one collective: gradients, loss, bin sums
+            loss = loss.reshape(1)
+            pmesh.all_reduce_sum(grads + [loss, *bins], group)
+            loss = loss[0]
+        if accum * self.dp > 1:
+            inv = float(np.float32(1.0 / (accum * self.dp)))
             loss = loss * inv
-            torch._foreach_mul_([self.params[n].grad for n in self.trainable], inv)
+            torch._foreach_mul_(grads, inv)
         return loss, bins
 
     @torch.no_grad()
@@ -277,16 +324,21 @@ class Trainer:
                 into[name].copy_(value)
 
     def save_checkpoint(self):
+        """The first rank writes ``<model_dir>/<exp_name>-<it>.ckpt``; the
+        mesh then meets at a barrier."""
         exp_name = self.args["exp"]["exp_name"]
-        base = os.path.join(self.args["model_dir"], f"{exp_name}-{self.it}")
-        gen = getattr(self.noise, "generator", None)
-        path = ckpt.save_checkpoint(
-            base, params=to_jax_params(self.params), ema_params=to_jax_params(self.ema),
-            opt_leaves=self.opt_leaves(), it=self.it,
-            generator_state=None if gen is None else gen.get_state().numpy(), args=self.args)
-        print("saving", path)
-        if self.args["logging"].get("remove_old_checkpoints", False):
-            ckpt.remove_checkpoint(self.latest_checkpoint)
+        path = os.path.join(self.args["model_dir"], f"{exp_name}-{self.it}.ckpt")
+        if self.writer:
+            gen = getattr(self.noise, "generator", None)
+            ckpt.save_checkpoint(
+                path, params=to_jax_params(self.params), ema_params=to_jax_params(self.ema),
+                opt_leaves=self.opt_leaves(), it=self.it,
+                generator_state=None if gen is None else gen.get_state().numpy(),
+                args=self.args)
+            print("saving", path)
+            if self.args["logging"].get("remove_old_checkpoints", False):
+                ckpt.remove_checkpoint(self.latest_checkpoint)
+        pmesh.barrier(self.mesh)
         self.latest_checkpoint = path
 
     def resume_from_checkpoint(self, checkpoint_path=None) -> bool:
@@ -338,6 +390,9 @@ class Trainer:
         ``<model_dir>/train_log.jsonl`` and the loss-by-sigma plot."""
         if self._metrics_acc is None:
             return
+        if not self.writer:             # the metrics are global: the first rank reports
+            self._metrics_acc = None
+            return
         acc = {k: v.detach().cpu().numpy() for k, v in self._metrics_acc.items()}
         n = max(float(acc["count"]), 1.0)
         loss_mean = float(acc["loss"] / n)
@@ -384,7 +439,9 @@ class Trainer:
 
     def heavy_logging(self):
         """Unconditional samples from the EMA weights of the latest
-        checkpoint (the current EMA before the first), written to model_dir.
+        checkpoint (the current EMA before the first), written to model_dir
+        by the first rank (every rank samples: the tester shards the samples
+        over the ranks where their number divides).
 
         The tester's network is called with those weights in place of its
         module's (``NetworkBundle.weights``): the trainer's module, which the
@@ -399,7 +456,7 @@ class Trainer:
             weights = {k: v.detach() for k, v in self.ema.items()}
         with self.tester.network.weights(weights):
             audio = self.tester.do_test(it=self.it)
-        if audio is None:
+        if audio is None or not self.writer:
             return
         fs = self.args["exp"]["sample_rate"]
         wandb_audio = {}
@@ -433,8 +490,9 @@ class Trainer:
             self._profiler.start()
         elif self.it == stop and self._profiler is not None:
             self._profiler.stop()
+            rank = f"_rank{pmesh.global_rank()}" if pmesh.world_size() > 1 else ""
             self._profiler.export_chrome_trace(
-                os.path.join(trace_dir, f"trace_it{start}-{stop}.json"))
+                os.path.join(trace_dir, f"trace_it{start}-{stop}{rank}.json"))
             self._profiler = None
             self._profile_cycle += 1
             print(f"profiling cycle {self._profile_cycle}/{self.profile_repeat} done")
@@ -451,6 +509,10 @@ class Trainer:
         heavy_interval = int(log_cfg["heavy_log_interval"])
         log_interval = int(log_cfg["log_interval"])
         max_iters = self.args["exp"].get("max_iters", None)
+        if not self.mesh.in_mesh:
+            print(f"rank {self.mesh.rank} is outside the mesh {self.mesh.shape} "
+                  f"(batch {self.batch_size}): it does not train")
+            return
 
         while True:
             self.train_step()

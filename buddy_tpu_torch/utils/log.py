@@ -1,8 +1,10 @@
-"""Audio files and the loss-by-sigma plot (``buddy_tpu/utils/log.py``).
+"""Audio files, the loss-by-sigma plot and the spectrogram plot
+(``buddy_tpu/utils/log.py``).
 
-matplotlib is imported inside ``plot_loss_by_sigma``: where it is not
-installed the call raises ImportError, and the trainer then skips the plot.
-The spectrogram plot of that module is not ported yet.
+matplotlib is imported inside the plotting functions: where it is not
+installed a call raises ImportError, and the trainer then skips the plot.
+The spectrogram's log magnitude comes from ``log_spectrogram``, which needs
+no matplotlib.
 """
 
 from __future__ import annotations
@@ -46,6 +48,51 @@ def plot_loss_by_sigma(means: Sequence[float], stds: Sequence[float],
     ax.set_xscale("log")
     ax.set_xlabel("sigma")
     ax.set_ylabel("loss")
+    fig.tight_layout()
+    if out_path:
+        fig.savefig(out_path, dpi=100)
+        plt.close(fig)
+        return out_path
+    return fig
+
+
+def log_spectrogram(x, stft_cfg, device=None) -> np.ndarray:
+    """20 log10(|STFT| + 1e-8) of a waveform, (n_fft / 2 + 1, frames):
+    ``n_fft`` = ``stft_cfg.win_size`` (1024 unless given), hop
+    ``stft_cfg.hop_size`` (256), a periodic Hann window and constant
+    padding, through ``ops/stft.py::STFT`` (kernel K2 on a CUDA tensor, its
+    plain version on the CPU).  ``device``: the tensor's where ``x`` is
+    one, else the card unless the CPU is asked for."""
+    import torch
+    from buddy_tpu_torch.ops.stft import STFT, hann_window
+    if isinstance(x, torch.Tensor):
+        device = x.device if device is None else device
+        x = x.detach()
+    else:
+        x = torch.as_tensor(np.asarray(x, np.float32))
+    win = int(stft_cfg.get("win_size", 1024))
+    hop = int(stft_cfg.get("hop_size", 256))
+    op = STFT(win, hop, hann_window(win), pad_mode="constant", device=device)
+    S = op.stft(x.to(op.device, torch.float32).reshape(1, -1))[0]
+    return (20 * torch.log10(S.abs() + 1e-8)).cpu().numpy()
+
+
+def plot_spectrogram_from_raw_audio(x, stft_cfg, fs: int = 16000, out_path: str | None = None,
+                                    device=None):
+    """Log-magnitude spectrogram plot of a waveform (``log_spectrogram``);
+    writes ``out_path`` and returns it, or returns the figure."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    logmag = log_spectrogram(x, stft_cfg, device=device)
+    n = int(np.prod(np.shape(x)))
+    fig, ax = plt.subplots(figsize=(8, 4))
+    im = ax.imshow(logmag, origin="lower", aspect="auto", cmap="magma",
+                   extent=[0, n / fs, 0, fs / 2])
+    fig.colorbar(im, ax=ax, label="dB")
+    ax.set_xlabel("time [s]")
+    ax.set_ylabel("frequency [Hz]")
     fig.tight_layout()
     if out_path:
         fig.savefig(out_path, dpi=100)

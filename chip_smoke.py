@@ -121,7 +121,26 @@ Phases, each printing one line:
    gradients, parameters, EMA and moments bit for bit after every step, K1
    in every step, ms a step and peak memory of each; (c) both
    configurations at nf=16 card vs CPU: (a)'s network forward and input
-   vjp, (b)'s one train step (with remat).  Then the total seconds.
+   vjp, (b)'s one train step (with remat);
+10. the device mesh over torch.distributed (``buddy_tpu_torch/parallel``):
+   (a) the training CLI under ``python -m torch.distributed.run --standalone
+   --nproc_per_node=1`` (NCCL, world 1, ``exp.mesh.dp=-1``) at nf=8 for 2
+   steps, then the testing CLI under it on its checkpoint; (b) two ranks on
+   the one card over gloo (CUDA tensors), started by this script
+   (``chip_smoke.py --mesh-rank <r>``), training the full-width network in
+   float32 at a global batch of 4 x 65536 with deterministic cuDNN: 2 steps
+   at dp=2, then 1 at dp=1 x sp=2, each against one process at the same
+   global batch and draws (loss and grad norm every step, gradients,
+   moments, parameters and EMA after the last), both ranks bit for bit, K1
+   and K2 launched in every rank's step, ms a step and the gradient
+   all-reduce's ms (two processes share the card: not a two-card figure);
+   (c) ``Tester.do_test()`` blind on the two ranks (full width, bf16, batch
+   8 split 4 a rank, T=2): the gathered predictions and estimated RIRs bit
+   for bit against one process running each rank's 4 utterances with that
+   rank's draw rows, rank 0 writing five directories of 8 finite WAVs and
+   rank 1 none, 2 unconditional samples at dp=2 row for row, the sampler's
+   ms a step per rank; (d) ``log_spectrogram`` through K2 against its plain
+   version.  Then the total seconds.
 
 A JSON line of the kernels' results precedes the last line (K1's float32
 rows from phase 6, their launches those of its training loop; K2's check
@@ -3020,6 +3039,487 @@ def config_space_card_vs_cpu(dev) -> None:
     train_step_card_vs_cpu(dev, SMALL_NET + DDPM_NET + ["network.remat=true"],
                            "nf=16, ddpm, remat")
 
+# ---------------------------------------------------------------------------
+# phase 10: the device mesh over torch.distributed
+# ---------------------------------------------------------------------------
+# (a) the CLIs under torchrun at world 1 (NCCL); (b) two ranks on the one
+# card over gloo (CUDA tensors) training the full-width network, against one
+# process at the same global batch and draws; (c) the blind tester and
+# unconditional sampling on the two ranks against one process running each
+# rank's utterances with its draws; (d) the spectrogram's log magnitude.
+MESH_DIR = os.path.join(OUT_DIR, "mesh_runs")
+MESH_BATCH = 4                  # run (b)'s global batch of 65536 samples, float32
+MESH_TRAIN = {"dp2": (["exp.mesh.dp=2"], 2, 21),          # overrides, steps, noise seed
+              "sp2": (["exp.mesh.dp=1", "exp.mesh.sp=2"], 1, 22)}
+MESH_TESTER_SEEDS = (42, 43)    # the tester's noise and reset noise (testing/tester.py)
+MESH_TIMEOUT = 600
+# run (b)'s limit on the parameters' and the EMA's largest difference from one
+# process: ten times the largest that sound runs read (dp=2 after 2 steps:
+# parameters 3.4886e-6, EMA 3.4872e-6; sp=2: 0; NVIDIA H100 80GB HBM3, 700 W),
+# well under one Adam step of lr = 1e-4, which a wrong update moves by
+MESH_PARAM_TOL = 3.5e-5
+
+
+def mesh_train_overrides(extra) -> list:
+    return [f"exp.batch_size={MESH_BATCH}", "exp.grad_accum=1", "exp.resume=False",
+            "logging.log=False", "tester=only_unconditional",
+            f"model_dir={os.path.join(MESH_DIR, 'train')}", *extra]
+
+
+def mesh_batches():
+    """Run (b)'s global batches: the 8 clean utterances, 4 a batch, in turn."""
+    import numpy as np
+    clean = load_wavs("clean", 8, 65536)[:, 0]
+    return [np.ascontiguousarray(clean[(4 * i + np.arange(4)) % 8]) for i in range(3)]
+
+
+def mesh_steps(trainer, steps: int, batches_from: int = 0) -> list:
+    """``steps`` train steps; for each the loss, the pre-clip norm, ms (CUDA
+    events around the step), and K1's and K2's launches in it."""
+    import torch
+    from buddy_tpu_torch.ops import groupnorm as K1, stft as K2
+    counters = (K1.group_norm_act, K1.group_norm_act_backward, K2.stft_analysis,
+                K2.stft_synthesis)
+    out = []
+    for _ in range(steps):
+        before = [c.launches for c in counters]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        trainer.train_step()
+        end.record()
+        torch.cuda.synchronize()
+        m = trainer._metrics_acc
+        out.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                    "ms": start.elapsed_time(end),
+                    "launches": [c.launches - b for c, b in zip(counters, before)]})
+        trainer._metrics_acc = None
+        trainer.it += 1
+    return out
+
+
+def mesh_state(trainer) -> dict:
+    grads = {k: p.grad.detach().clone() for k, p in trainer.params.items() if p.grad is not None}
+    state = {w: {k: v.detach().clone() for k, v in getattr(trainer, w).items()}
+             for w in ("params", "ema", "mu", "nu")}
+    return {"grads": grads, **state}
+
+
+def mesh_compare(ours: dict, ref: dict) -> dict:
+    """The state after the last step against one process's: gradients (of
+    the last step) at ``gradient_tolerances``' rule (1e-4 of each leaf's
+    peak, no less than 1e-6 of the largest leaf's), mu at that rule of its
+    own leaves, nu at twice it (nu ~ g^2), parameters and EMA within
+    MESH_PARAM_TOL.  Returns the
+    largest error / tolerance of each and the largest parameter and EMA
+    differences; raises beyond a tolerance."""
+    worst = {}
+    for what, factor in (("grads", 1.0), ("mu", 1.0), ("nu", 2.0)):
+        top = max(float(v.abs().max()) for v in ref[what].values())
+        w = 0.0
+        if ours[what].keys() != ref[what].keys():
+            raise AssertionError(f"mesh train: {what} leaves differ")
+        for k, r in ref[what].items():
+            tol = factor * max(1e-4 * float(r.abs().max()), 1e-6 * top)
+            e = max_err(ours[what][k], r)
+            check(f"mesh train {what} {k}", e, tol)
+            w = max(w, e / tol if tol else 0.0)
+        worst[what] = round(w, 4)
+    for what in ("params", "ema"):
+        d = max(max_err(ours[what][k], r) for k, r in ref[what].items())
+        check(f"mesh train {what}", d, MESH_PARAM_TOL)
+        worst[what + "_max_diff"] = d
+    return worst
+
+
+def mesh_digest(state: dict) -> str:
+    import hashlib
+    h = hashlib.sha256()
+    for what in ("params", "ema", "mu", "nu"):
+        for k in sorted(state[what]):
+            h.update(state[what][k].detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def mesh_train_reference(dev, batches) -> dict:
+    """Run (b)'s one-process runs: each case's steps at the global batch,
+    deterministic cuDNN; the state after the last step to MESH_DIR."""
+    import torch
+    from buddy_tpu_torch.sampling.euler_heun import NoiseSource
+    out = {}
+    for case, (_, steps, seed) in MESH_TRAIN.items():
+        first = 0 if case == "dp2" else 2
+        trainer, _ = build_trainer(dev, mesh_train_overrides(["exp.mesh.dp=1"]),
+                                   loader=ReplayLoader(batches[first:first + steps]),
+                                   noise=NoiseSource(torch.Generator().manual_seed(seed)))
+        out[case] = mesh_steps(trainer, steps)
+        torch.save(mesh_state(trainer), os.path.join(MESH_DIR, f"ref_{case}.pt"))
+        out[case + "_params"] = trainer.total_params
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_train_rank(dev, rank: int) -> dict:
+    """Run (b) on one rank: each case from the same weights (seed), global
+    batches and draws as the one-process run; the all-reduce's ms a step,
+    timed between two synchronisations."""
+    import numpy as np
+    import torch
+    from buddy_tpu_torch.parallel import mesh as pmesh
+    from buddy_tpu_torch.sampling.euler_heun import NoiseSource
+    with np.load(os.path.join(MESH_DIR, "batches.npz")) as f:
+        batches = [f[k] for k in sorted(f.files)]
+    all_reduce_ms, inner = [], pmesh.all_reduce_sum
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        inner(*a, **k)
+        torch.cuda.synchronize()
+        all_reduce_ms.append((time.perf_counter() - t0) * 1e3)
+    pmesh.all_reduce_sum = timed
+    res = {}
+    for case, (extra, steps, seed) in MESH_TRAIN.items():
+        all_reduce_ms.clear()
+        first = 0 if case == "dp2" else 2
+        trainer, _ = build_trainer(dev, mesh_train_overrides(extra),
+                                   loader=ReplayLoader(batches[first:first + steps]),
+                                   noise=NoiseSource(torch.Generator().manual_seed(seed)))
+        rows = mesh_steps(trainer, steps)
+        state = mesh_state(trainer)
+        ref = torch.load(os.path.join(MESH_DIR, f"ref_{case}.pt"), map_location=dev)
+        res[case] = {"steps": rows, "mesh": trainer.mesh.shape, "coords": trainer.mesh.coords,
+                     "compare": mesh_compare(state, ref), "digest": mesh_digest(state),
+                     "all_reduce_ms": list(all_reduce_ms)}
+        del trainer, state, ref
+        torch.cuda.empty_cache()
+    return res
+
+
+MESH_TESTER = ["tester.sampling_params.T=2", "network.compute_dtype=bfloat16",
+               "tester.posterior_sampling.guidance_jacobian=full",
+               "tester.posterior_sampling.blind_hp.op_updates_per_step=10",
+               "tester.posterior_sampling.warm_initialization.mode=wpe_scaled",
+               "tester.batched.use=True", "tester.batched.batch_size=8"]
+
+
+def mesh_capture(tester) -> dict:
+    """Keep the first (prediction, estimated RIR) the tester writes for
+    each file."""
+    got = {}
+    inner = tester._write_item_outputs
+
+    def keep(mode, seg, y, pred, rir, filename, est_rir=None):
+        got.setdefault(os.path.basename(filename), (pred.copy(), est_rir.copy()))
+        return inner(mode, seg, y, pred, rir, filename, est_rir=est_rir)
+    tester._write_item_outputs = keep
+    return got
+
+
+def mesh_unconditional_tester(dev, net, model_dir):
+    from buddy_tpu_torch.config import compose, instantiate
+    from buddy_tpu_torch.testing.tester import Tester
+    args = compose("conf_VCTK.yaml", [
+        "tester=only_unconditional", "network.compute_dtype=bfloat16",
+        "tester.sampling_params.T=2", "tester.unconditional.num_samples=2",
+        "tester.unconditional.audio_len=65536", f"model_dir={model_dir}",
+        "tester.overriden_name=mesh_unconditional"])
+    return Tester(args, net, instantiate(args["diff_params"]), device=dev)
+
+
+def mesh_tester_rank(dev, rank: int) -> dict:
+    """Run (c) on one rank: the blind ``do_test()`` of the 8 utterances
+    (batch 8, this rank's 4) twice, then 2 unconditional samples (one a
+    rank); the outputs the first rank writes in the first run (the
+    gathered batch), the sampler's ms a step on this rank, cold and warm."""
+    import numpy as np
+    import torch
+    model_dir = os.path.join(MESH_DIR, f"tester_rank{rank}")
+    args, net, tester = build_tester(dev, "blind_dereverberation_BUDDy",
+                                     os.path.join(MESH_DIR, "data"), "mesh",
+                                     [*MESH_TESTER, f"model_dir={model_dir}"])
+    got = mesh_capture(tester)
+    sampler_s, inner = [], tester.sampler.predict_conditional_batched
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*a, **k)
+        torch.cuda.synchronize()
+        sampler_s.append(time.perf_counter() - t0)
+        return out
+    tester.sampler.predict_conditional_batched = timed
+    tester.do_test()                # compared; the second run is timed warm
+    torch.cuda.synchronize()
+    if rank == 0:
+        check_outputs(tester, "blind_dereverberation", 8, 65536, blind=True)
+    tester.do_test()
+    torch.cuda.synchronize()
+    unc = mesh_unconditional_tester(dev, net, model_dir).do_test()
+    arrays = {f"pred/{k}": v[0] for k, v in got.items()}
+    arrays.update({f"est/{k}": v[1] for k, v in got.items()})
+    if unc is not None:
+        arrays["unconditional"] = unc
+    np.savez(os.path.join(MESH_DIR, f"tester_rank{rank}.npz"), **arrays)
+    files = sorted(os.path.relpath(os.path.join(d, f), model_dir)
+                   for d, _, fs in os.walk(model_dir) for f in fs)
+    return {"written": len(got), "files": files, "sampler_ms_per_step_cold_warm":
+            [round(s / tester.sampler.T * 1e3, 1) for s in sampler_s],
+            "mesh": None if tester.mesh is None else tester.mesh.shape}
+
+
+def mesh_tester_reference(dev) -> dict:
+    """Run (c)'s one-process runs: for each rank r, its 4 utterances as one
+    batch with the draws of rows r of the global batch (``ShardedNoise``
+    over the tester's seeds); its unconditional row likewise."""
+    import torch
+    from buddy_tpu_torch.sampling.euler_heun import NoiseSource, ShardedNoise
+    out = {"pred": {}, "est": {}, "unconditional": []}
+    for r in range(2):
+        args, net, tester = build_tester(dev, "blind_dereverberation_BUDDy",
+                                         os.path.join(MESH_DIR, "data"), f"mesh_ref{r}",
+                                         [*MESH_TESTER, f"model_dir={MESH_DIR}"])
+        tester.test_set = [tester.test_set[i] for i in range(4 * r, 4 * r + 4)]
+        tester.noise, tester.reset_noise = (
+            ShardedNoise(NoiseSource(torch.Generator().manual_seed(s)), r, 2)
+            for s in MESH_TESTER_SEEDS)
+        got = mesh_capture(tester)
+        tester.do_test()
+        for k, (p, e) in got.items():
+            out["pred"][k], out["est"][k] = p, e
+        unc = mesh_unconditional_tester(dev, net, MESH_DIR)
+        out["unconditional"].append(unc.sampler.predict_unconditional(
+            (1, 65536), noise=ShardedNoise(unc.noise, r, 2)).cpu().numpy())
+        del net, tester, unc
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_rank_main(argv) -> int:
+    """A rank of phase 10's world of two (``chip_smoke.py --mesh-rank <rank>``):
+    gloo on the one card, runs (b) and (c), results to MESH_DIR."""
+    import torch
+    import torch.distributed as dist
+    rank = int(argv[0])
+    sys.path.insert(0, REPO)
+    torch.cuda.set_device(0)
+    from buddy_tpu_torch.device import resolve_device
+    dev = resolve_device(None)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(MESH_DIR, 'store')}",
+                            rank=rank, world_size=2)
+    try:
+        res = {"rank": rank, "device": str(dev), "backend": dist.get_backend(),
+               "train": mesh_train_rank(dev, rank), "tester": mesh_tester_rank(dev, rank)}
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(MESH_DIR, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    return 0
+
+
+def mesh_clis(dev) -> float:
+    """(a): the training CLI under ``torchrun --standalone --nproc_per_node=1``
+    (NCCL, world 1, exp.mesh.dp=-1) at nf=8 for 2 steps, then the testing CLI
+    under torchrun on its checkpoint."""
+    import numpy as np
+    t0 = time.perf_counter()
+    model_dir = os.path.join(MESH_DIR, "cli")
+    if not os.path.isdir(os.path.join(OUT_DIR, "train")):
+        write_train_set(os.path.join(OUT_DIR, "train"))
+    torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                "--nproc_per_node=1", "-m"]
+    cmd = [*torchrun, "buddy_tpu_torch.training", "--config-name=conf_VCTK.yaml",
+           *TINY_TRAIN, f"dset.train.path={os.path.join(OUT_DIR, 'train')}",
+           "dset.train.speakers_test=[]", "exp.batch_size=4", "exp.max_iters=2",
+           "exp.mesh.dp=-1", "logging.save_interval=2", "logging.log_interval=1",
+           "logging.heavy_log_interval=2", "tester.sampling_params.T=2",
+           "tester.unconditional.num_samples=1", f"model_dir={model_dir}"]
+    run = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=MESH_TIMEOUT)
+    if run.returncode != 0 or "it=2 loss=" not in run.stdout or "nccl" not in run.stdout:
+        raise AssertionError(f"torchrun training CLI exited with {run.returncode}:\n"
+                             f"{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
+    ranks_line = [ln for ln in run.stdout.splitlines() if ln.startswith("Ranks:")]
+    ckpt = os.path.join(model_dir, "VCTK_16k_4s_time-2.ckpt")
+    if not os.path.exists(ckpt):
+        raise AssertionError(f"torchrun training CLI wrote {sorted(os.listdir(model_dir))}")
+    cmd = [*torchrun, "buddy_tpu_torch.testing", "--config-name=conf_VCTK.yaml",
+           "tester=blind_dereverberation_BUDDy", f"tester.checkpoint={ckpt}", *TINY_TRAIN,
+           "dset=vctk_16k_4s_test-benchmark", f"dset.test.path={os.path.join(MESH_DIR, 'data')}",
+           'dset.test.speakers_test=["p226"]', "dset.test.num_examples=2",
+           "tester.sampling_params.T=2", "tester.posterior_sampling.blind_hp.op_updates_per_step=2",
+           "tester.batched.use=True", "tester.batched.batch_size=2", "tester.overriden_name=cli",
+           f"model_dir={model_dir}"]
+    run = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=MESH_TIMEOUT)
+    if run.returncode != 0 or "(it=2)" not in run.stdout or "nccl" not in run.stdout:
+        raise AssertionError(f"torchrun testing CLI exited with {run.returncode}:\n"
+                             f"{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
+    from buddy_tpu_torch.data.audio_io import read_wav
+    rec = read_wav(os.path.join(model_dir, "cli", "blind_dereverberation", "VCTK_16k_4s_time",
+                                "reconstructed", "utt0.wav"))[0]
+    if len(rec) != 65536 or not np.isfinite(rec).all():
+        raise AssertionError("torchrun testing CLI: reconstructed/utt0.wav is not 65536 finite "
+                             "samples")
+    s = time.perf_counter() - t0
+    log(f"(a) torchrun --standalone --nproc_per_node=1: the training CLI (nf=8, batch 4 x 65536, "
+        f"exp.mesh.dp=-1, max_iters=2; {ranks_line[0] if ranks_line else ''}): exit 0, "
+        f"checkpoint at it=2; the testing CLI under torchrun on it (blind, 2 items): exit 0, "
+        f"finite WAVs; {s:.1f} s")
+    return s
+
+
+def mesh_spectrogram(dev) -> None:
+    """(d): ``log_spectrogram`` (n_fft 1024, hop 256, constant padding) of an
+    utterance on the card (K2) against the CPU's (its plain version), the
+    magnitudes to 1e-4 of their peak."""
+    import torch
+    from buddy_tpu_torch.ops import stft as K2
+    from buddy_tpu_torch.utils.log import log_spectrogram
+    x = torch.from_numpy(load_wavs("clean", 1, 65536)[0, 0])
+    cfg = {"win_size": 1024, "hop_size": 256}
+    before = K2.stft_analysis.launches
+    card = log_spectrogram(x.to(dev), cfg)
+    launched = K2.stft_analysis.launches - before
+    cpu = log_spectrogram(x, cfg, device="cpu")
+    mag, mag_ref = 10.0 ** (card / 20), 10.0 ** (cpu / 20)
+    e = max_err(torch.from_numpy(mag), torch.from_numpy(mag_ref))
+    check("log_spectrogram card vs CPU (magnitudes)", e, 1e-4 * float(mag_ref.max()))
+    if launched != 1 or card.shape != (513, 257):
+        raise AssertionError(f"log_spectrogram: {launched} K2 launches, shape {card.shape}")
+    log(f"(d) log_spectrogram (1024 / 256, constant padding) of 65536 samples: {card.shape}, one "
+        f"K2 analysis launch on the card; magnitudes card vs CPU within {e:.3e} "
+        f"({e / float(mag_ref.max()):.2e} of the peak; tolerance 1e-4 of the peak)")
+
+
+def mesh_world() -> list:
+    """Start the world of two (``chip_smoke.py --mesh-rank <r>``), wait for
+    both ranks (killed at the time limit), and return their results."""
+    procs = [subprocess.Popen([sys.executable, os.path.join(REPO, "chip_smoke.py"), "--mesh-rank",
+                               str(r)], cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=MESH_TIMEOUT))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bad = [f"rank {r}: exit {p.returncode}\n{o[0][-1500:]}\n{o[1][-3000:]}"
+           for r, (p, o) in enumerate(zip(procs, outs)) if p.returncode != 0]
+    if bad:
+        raise AssertionError("phase 10's ranks failed:\n" + "\n".join(bad))
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(MESH_DIR, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def mesh_phase(dev) -> None:
+    """Phase 10: (a) the CLIs under torchrun; (b) and (c) on two ranks of
+    the one card (gloo on CUDA tensors, spawned here) against one process;
+    (d) the spectrogram."""
+    import numpy as np
+    import torch
+    shutil.rmtree(MESH_DIR, ignore_errors=True)
+    os.makedirs(MESH_DIR)
+    write_paired_set(os.path.join(MESH_DIR, "data"), load_wavs("clean", 8, 65536)[:, 0], seed=11)
+    batches = mesh_batches()
+    np.savez(os.path.join(MESH_DIR, "batches.npz"), **{f"b{i}": b for i, b in enumerate(batches)})
+    mesh_clis(dev)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    t0 = time.perf_counter()
+    ref_train = mesh_train_reference(dev, batches)
+    ref_tester = mesh_tester_reference(dev)
+    t_ref = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = mesh_world()
+    t_world = time.perf_counter() - t0
+    torch.backends.cudnn.deterministic = False
+
+    # (b): each rank against the one process, and the ranks' bits
+    train = {}
+    for case, (_, steps, _) in MESH_TRAIN.items():
+        a, b = ranks[0]["train"][case], ranks[1]["train"][case]
+        if a["digest"] != b["digest"]:
+            raise AssertionError(f"(b) {case}: the ranks' parameters, EMA and moments differ "
+                                 f"({a['digest']} / {b['digest']})")
+        for r, rk in enumerate((a, b)):
+            for i, (s, s_ref) in enumerate(zip(rk["steps"], ref_train[case])):
+                for what in ("loss", "grad_norm"):
+                    check(f"(b) {case} rank {r} step {i} {what} (relative)",
+                          abs(s[what] - s_ref[what]) / abs(s_ref[what]), 1e-4)
+                if min(s["launches"]) == 0:
+                    raise AssertionError(f"(b) {case} rank {r} step {i}: K1 / K2 launches "
+                                         f"{s['launches']}")
+        train[case] = {
+            "mesh": a["mesh"], "loss": [round(s["loss"], 6) for s in a["steps"]],
+            "loss_one_process": [round(s["loss"], 6) for s in ref_train[case]],
+            "grad_norm": [round(s["grad_norm"], 6) for s in a["steps"]],
+            "ms_per_step_by_rank": [[round(s["ms"], 1) for s in rk["steps"]] for rk in (a, b)],
+            "ms_per_step_one_process": [round(s["ms"], 1) for s in ref_train[case]],
+            "all_reduce_ms_by_rank": [[round(v, 1) for v in rk["all_reduce_ms"]]
+                                      for rk in (a, b)],
+            "k1_fwd_bwd_k2_an_syn_launches_a_step": [s["launches"] for s in a["steps"]],
+            "worst_error_over_tolerance_rank0": a["compare"],
+            "worst_error_over_tolerance_rank1": b["compare"], "digest": a["digest"]}
+    log(f"(b) the full-width network ({ref_train['dp2_params'] / 1e6:.2f} M params) trained "
+        f"at a global batch of {MESH_BATCH} x 65536, float32, deterministic cuDNN, on two "
+        f"ranks of the one card over gloo (CUDA tensors): 2 steps at dp=2, 1 at dp=1 x sp=2, "
+        f"each against one process at the same global batch and draws: loss and grad norm "
+        f"every step (1e-4 relative), gradients, moments, parameters and EMA after the last "
+        f"(gradient_tolerances' rule; {MESH_PARAM_TOL}), both ranks bit for bit; K1 and K2 in "
+        f"every rank's step; two processes share one card, so these ms are not a two-card figure: "
+        + json.dumps(train))
+
+    # (c): the first rank's gathered outputs against the one-process runs
+    t0_, t1_ = ranks[0]["tester"], ranks[1]["tester"]
+    if t0_["written"] != 8 or t1_["written"] != 0 or t1_["files"]:
+        raise AssertionError(f"(c) rank 0 wrote {t0_['written']} items, rank 1 {t1_['written']} "
+                             f"and files {t1_['files'][:4]}")
+    blind = [f for f in t0_["files"] if f.startswith("mesh/blind_dereverberation/")]
+    n_wav = sum(f.endswith(".wav") for f in blind)
+    unc_files = [f for f in t0_["files"] if f.endswith(".wav") and "unconditional" in f]
+    if n_wav != 40 or len(unc_files) != 2:
+        raise AssertionError(f"(c) rank 0's files: {n_wav} blind WAVs, {unc_files}")
+    with np.load(os.path.join(MESH_DIR, "tester_rank0.npz")) as f:
+        got = {k: f[k] for k in f.files}
+    for kind in ("pred", "est"):
+        for name, ref in ref_tester[kind].items():
+            ours = got[f"{kind}/{name}"]
+            if not np.array_equal(ours, ref):
+                raise AssertionError(f"(c) {kind} {name}: the two ranks' run differs from the "
+                                     f"one process's (max {float(np.abs(ours - ref).max()):.3e})")
+    if len(ref_tester["pred"]) != 8:
+        raise AssertionError(f"(c) the one-process runs wrote {sorted(ref_tester['pred'])}")
+    for r in range(2):
+        if not np.array_equal(got["unconditional"][r], ref_tester["unconditional"][r][0]):
+            raise AssertionError(f"(c) unconditional row {r} differs from the one process's")
+    if not np.isfinite(got["unconditional"]).all():
+        raise AssertionError("(c) unconditional samples not finite")
+    sampler_ms = [t0_["sampler_ms_per_step_cold_warm"], t1_["sampler_ms_per_step_cold_warm"]]
+    log(f"(c) Tester.do_test() blind on two ranks of the one card over gloo (full width, bf16, "
+        f"batch 8 x 65536 split 4 a rank, T=2, 10 updates a step, WPE warm init, deterministic "
+        f"cuDNN): the first rank's gathered 8 predictions and estimated RIRs bit for bit equal "
+        f"to one process running each rank's 4 utterances with that rank's draw rows; rank 0 "
+        f"wrote 5 directories of 8 finite WAVs (+ metrics), rank 1 none; 2 unconditional "
+        f"samples at dp=2, each rank's row bit for bit equal to one process's; sampler ms a "
+        f"step by rank, cold and warm (two processes on one card): {sampler_ms}; the "
+        f"one-process references took {t_ref:.1f} s, the world of two {t_world:.1f} s")
+    mesh_spectrogram(dev)
+    # only the ranks' results are kept: the state files, checkpoints, WAV
+    # sets and arrays would take chiprun_out/ past what a run brings back
+    for name in os.listdir(MESH_DIR):
+        p = os.path.join(MESH_DIR, name)
+        if os.path.isdir(p):
+            shutil.rmtree(p)
+        elif not (name.startswith("rank") and name.endswith(".json")):
+            os.remove(p)
+
 
 def main() -> int:
     import torch
@@ -3143,6 +3643,9 @@ def main() -> int:
     remat_training(dev, wrappers)
     config_space_card_vs_cpu(dev)
     log(f"phase 9 (the rest of NCSN++'s configuration space) in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mesh_phase(dev)
+    log(f"phase 10 (the device mesh over torch.distributed) in {time.perf_counter() - t0:.1f} s")
 
     # K10's launches are those of the int8 dynamic run (quantize_bwd, fused
     # up-blocks: every wrapper; the sm90 route), the static run's beside
@@ -3183,4 +3686,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        sys.exit(mesh_rank_main(sys.argv[2:]))
     sys.exit(main())
