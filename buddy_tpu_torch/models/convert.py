@@ -21,6 +21,13 @@ also hold a "quant" collection of calibrated scales, ``{"quant": {"unet":
 {... "Conv_0": {"a_scale": (C_in,)}}}}``: the port's ``a_scale`` buffers
 under the same paths.
 
+Under tensor parallelism (``parallel/mesh.py``) each rank holds its block
+of the conv weights that ``param_shardings`` splits: ``from_jax_params(tree,
+mesh)`` hands each rank its blocks of a whole JAX tree, and
+``to_jax_params(state, shardings)`` gathers the blocks to the first rank of
+each tp line, which alone returns the whole tree (the others None), so that
+checkpoints hold the JAX layout whatever the tp.
+
 ``convert_torch_state_dict`` and ``load_torch_checkpoint`` do what the JAX
 package's do: a reference ``.pt`` file, read with ``torch.load``, becomes
 the JAX tree (the reference's module names are the port's, without the
@@ -33,6 +40,8 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+
+from buddy_tpu_torch.parallel import mesh as pmesh
 
 
 _FIR_WEIGHT = "Conv2d_0_weight"
@@ -52,9 +61,10 @@ def _leaf(name: str, value: np.ndarray):
     return name, value
 
 
-def from_jax_params(tree: Mapping) -> dict:
+def from_jax_params(tree: Mapping, mesh=None) -> dict:
     """Nested numpy dicts of the JAX variables (or of the parameter tree
-    alone) -> torch state dict, the "quant" collection's scales included."""
+    alone) -> torch state dict, the "quant" collection's scales included;
+    with a ``mesh`` that has a tp axis, this rank's blocks."""
     trees = [tree]
     if "params" in tree:
         trees = [tree["params"]] + ([tree["quant"]] if "quant" in tree else [])
@@ -73,7 +83,7 @@ def from_jax_params(tree: Mapping) -> dict:
 
     for t in trees:
         walk(t, [])
-    return out
+    return out if mesh is None else pmesh.local_blocks(mesh, out)
 
 
 def _to_jax_leaf(name: str, value: np.ndarray):
@@ -88,10 +98,17 @@ def _to_jax_leaf(name: str, value: np.ndarray):
     return name, value
 
 
-def to_jax_params(state: Mapping) -> dict:
+def to_jax_params(state: Mapping, shardings=None):
     """The port's state dict (tensors) -> the JAX variables, nested dicts of
     float32 numpy arrays under ``{"params": ...}``, and the ``a_scale``
-    buffers under ``{"quant": ...}`` where there are any."""
+    buffers under ``{"quant": ...}`` where there are any.  ``shardings``
+    (``parallel.shard_params``'): ``state`` holds this rank's blocks, which
+    are gathered over its tp line; the line's first rank returns the whole
+    tree, the others None."""
+    if shardings is not None:
+        state = pmesh.gather_params(shardings, state)
+        if state is None:
+            return None
     trees: dict = {}
     for key, value in state.items():
         tree = trees.setdefault("quant" if key.endswith(".a_scale") else "params", {})

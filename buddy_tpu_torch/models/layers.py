@@ -13,6 +13,24 @@ conv of ``dtype=compute_dtype`` (after a residual pyramid's sum), and
 float32 for the JAX package's convs built without a dtype (flax promotes a
 bfloat16 input with their float32 weights to float32, and what follows is
 promoted with it).
+
+Tensor parallelism (``set_tensor_parallel``, the trainer's ``exp.mesh.tp``):
+a conv whose output channels divide over tp (``parallel.mesh.tp_sharded``,
+the JAX package's ``param_shardings`` rule) holds its rank's rows of the
+weight and computes only those channels: its input, whole on every rank,
+passes ``copy_to_tp`` (backward: the input gradient summed over the tp
+group), its bias is sliced, and ``gather_from_tp`` brings the channels of
+every rank back before whatever reads them all (the next conv, the skip
+add, attention's NINs, Combine, the pyramids, the output layer and the
+ISTFT).  Inside a ResBlock the channels stay sharded from Conv_0 through
+its bias, this rank's rows of ``Dense_0(act(temb))`` and GroupNorm_1, which
+runs K1 on the local channels with num_groups / tp groups (whole groups:
+their statistics need no collective); they are gathered for Conv_1.  Under
+``remat`` the recomputation repeats the forward's all-gathers in the same
+order on every rank.  The biases, Dense_0 and GroupNorm_1's affine stay
+replicated (1-D and 2-D leaves), so each rank's gradient holds only its
+slice of them: ``set_tensor_parallel`` returns them, and the trainer sums
+their gradients over the tp group.
 """
 
 from __future__ import annotations
@@ -27,6 +45,7 @@ from torch.utils.checkpoint import checkpoint
 from buddy_tpu_torch.ops import qconv as Q
 from buddy_tpu_torch.ops import resample as R
 from buddy_tpu_torch.ops.groupnorm import group_norm_act
+from buddy_tpu_torch.parallel import mesh as pmesh
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 
@@ -69,9 +88,15 @@ class GroupNormAct(nn.Module):
             self.weight.fill_(1.0)
             self.bias.zero_()
 
-    def forward(self, x):
+    def forward(self, x, tp=None):
+        """``tp``: x holds this rank's channels, normalised in num_groups / tp
+        whole groups with this rank's slice of the affine."""
         fused = self.act is F.silu
-        y = group_norm_act(x, self.weight, self.bias, self.num_groups, self.eps, silu=fused)
+        w, b, g = self.weight, self.bias, self.num_groups
+        if tp is not None:
+            blk = tp.block(w.shape[0])
+            w, b, g = w[blk], b[blk], g // tp.size
+        y = group_norm_act(x, w, b, g, self.eps, silu=fused)
         if self.act is not None and not fused:
             y = self.act(y)
         return y
@@ -84,7 +109,11 @@ def group_norm(ch: int, act=None) -> GroupNormAct:
 
 class Conv(nn.Conv2d):
     """nn.Conv2d in ``dtype`` when given (the input is cast to it), else in
-    the input's dtype, with the DDPM initializer."""
+    the input's dtype, with the DDPM initializer.  ``tp`` (set by
+    ``set_tensor_parallel``): the weight holds this rank's output channels;
+    ``forward`` gathers every rank's, ``local`` returns this rank's."""
+
+    tp = None
 
     def __init__(self, in_ch, out_ch, kernel_size, *, padding=0, stride=1, bias=True,
                  init_scale=1.0, dtype=None):
@@ -98,11 +127,26 @@ class Conv(nn.Conv2d):
             with torch.no_grad():
                 self.bias.zero_()
 
-    def forward(self, x):
+    def _bias(self):
+        """The bias of the channels this rank computes."""
+        if self.tp is None or self.bias is None:
+            return self.bias
+        return self.bias[self.tp.block(self.bias.shape[0])]
+
+    def _local(self, x):
         if self.compute_dtype is not None:
             x = x.to(self.compute_dtype)
-        b = None if self.bias is None else self.bias.to(x.dtype)
-        return self._conv_forward(x, self.weight.to(x.dtype), b)
+        b = self._bias()
+        return self._conv_forward(x, self.weight.to(x.dtype), None if b is None else b.to(x.dtype))
+
+    def local(self, x):
+        """This rank's output channels of the whole input ``x``."""
+        return self._local(x if self.tp is None else pmesh.copy_to_tp(x, self.tp))
+
+    def forward(self, x):
+        if self.tp is None:
+            return self._local(x)
+        return pmesh.gather_from_tp(self.local(x), self.tp)
 
 
 def quant_config(quant) -> tuple:
@@ -135,7 +179,7 @@ class _Int8:
         if a_scale is not None and self.observing:
             Q.observe_(a_scale, x)
             a_scale = None
-        return Q.quantized_conv(x, self.weight, self.bias, self.kind, self.accum,
+        return Q.quantized_conv(x, self.weight, self._bias(), self.kind, self.accum,
                                 self.bwd_quant, a_scale, cache=self.weight_cache)
 
 
@@ -151,7 +195,7 @@ class QConv(_Int8, Conv):
         self.weight_cache = {}
         self._set_quant(quant, in_ch)
 
-    def forward(self, x):
+    def _local(self, x):
         return self._int8(x)
 
 
@@ -173,12 +217,12 @@ class FusedUpConv(_Int8, Conv):
         if quant:
             self._set_quant(quant, in_ch)
 
-    def forward(self, x):
+    def _local(self, x):
         if self.quant:
             return self._int8(x)
         FusedUpConv.float_calls += 1
         return R.lhs_dilated_conv(x, Q.float_weight(self.weight, self.kind, x.dtype,
-                                                  self.weight_cache), self.bias.to(x.dtype))
+                                                  self.weight_cache), self._bias().to(x.dtype))
 
 
 def conv3x3(in_ch, out_ch, *, init_scale=1.0, stride=1, bias=True, quant=False,
@@ -200,7 +244,8 @@ def conv1x1(in_ch, out_ch, *, init_scale=1.0, bias=True, quant=False, dtype=None
 
 
 class Dense(nn.Linear):
-    """nn.Linear in the input's dtype, with the DDPM initializer."""
+    """nn.Linear in the input's dtype, with the DDPM initializer; with
+    ``tp``, this rank's slice of the outputs."""
 
     def init_(self, generator):
         o, i = self.weight.shape
@@ -208,8 +253,12 @@ class Dense(nn.Linear):
         with torch.no_grad():
             self.bias.zero_()
 
-    def forward(self, x):
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+    def forward(self, x, tp=None):
+        w, b = self.weight, self.bias
+        if tp is not None:
+            blk = tp.block(w.shape[0])
+            w, b = w[blk], b[blk]
+        return F.linear(x, w.to(x.dtype), b.to(x.dtype))
 
 
 def naive_upsample_2d(x, factor: int = 2):
@@ -322,7 +371,11 @@ class _Resample(nn.Module):
     """x2 resampling between levels, optionally with a 3x3 conv: ``Conv_0``
     without FIR (float32, as the JAX package's, built without a dtype);
     with FIR the raw ``Conv2d_0_weight`` (O, I, 3, 3; the JAX package's is
-    HWIO) and ``Conv2d_0_bias`` of a SAME conv on the FIR side."""
+    HWIO) and ``Conv2d_0_bias`` of a SAME conv on the FIR side; with ``tp``
+    that raw weight holds this rank's output channels, as a sharded
+    ``Conv``'s."""
+
+    tp = None
 
     def __init__(self, in_ch: int, out_ch: int | None = None, *, with_conv=False, fir=False,
                  fir_kernel=(1, 3, 3, 1)):
@@ -342,6 +395,15 @@ class _Resample(nn.Module):
             with torch.no_grad():
                 self.Conv2d_0_bias.zero_()
 
+    def _fir_conv(self, x, op):
+        """op(x, weight) + bias, the FIR side's raw conv; with ``tp``, on
+        this rank's output channels, then gathered."""
+        w, b = self.Conv2d_0_weight, self.Conv2d_0_bias
+        if self.tp is None:
+            return op(x, w) + b[:, None, None]
+        h = op(pmesh.copy_to_tp(x, self.tp), w) + b[self.tp.block(b.shape[0])][:, None, None]
+        return pmesh.gather_from_tp(h, self.tp)
+
 
 class Upsample(_Resample):
     """x2 upsampling (``buddy_tpu/models/layers.py::Upsample``): nearest,
@@ -357,8 +419,8 @@ class Upsample(_Resample):
             return self.Conv_0(h) if self.with_conv else h
         if not self.with_conv:
             return R.upsample_2d(x, self.fir_kernel, factor=2)
-        h = R.upsample_conv_2d(x, self.Conv2d_0_weight, self.fir_kernel, factor=2)
-        return h + self.Conv2d_0_bias[:, None, None]
+        return self._fir_conv(
+            x, lambda v, w: R.upsample_conv_2d(v, w, self.fir_kernel, factor=2))
 
 
 class Downsample(_Resample):
@@ -377,17 +439,22 @@ class Downsample(_Resample):
                 else naive_downsample_2d(x)
         if not self.with_conv:
             return R.downsample_2d(x, self.fir_kernel, factor=2)
-        h = R.conv_downsample_2d(x, self.Conv2d_0_weight, self.fir_kernel, factor=2)
-        return h + self.Conv2d_0_bias[:, None, None]
+        return self._fir_conv(
+            x, lambda v, w: R.conv_downsample_2d(v, w, self.fir_kernel, factor=2))
 
 
 class _ResBlock(nn.Module):
     """A residual block; with ``remat`` (set by ``NCSNpp``) its forward is
     recomputed in the backward pass instead of keeping its activations
     (``torch.utils.checkpoint``, as the JAX package's ``nn.remat``): the
-    values and gradients do not change."""
+    values and gradients do not change.  With ``tp`` (``set_tensor_parallel``)
+    Conv_0's output stays on this rank's channels through its bias, this
+    rank's rows of Dense_0 and GroupNorm_1, and is gathered for Conv_1; its
+    ``temb`` must then be the network's ``copy_to_tp`` of it, since each rank's
+    Dense_0 rows see only part of its gradient."""
 
     remat = False
+    tp = None
 
     def forward(self, x, temb=None):
         if self.remat and torch.is_grad_enabled():
@@ -396,6 +463,18 @@ class _ResBlock(nn.Module):
 
     def _skip(self, x, h):
         return x + h if not self.skip_rescale else (x + h) * _INV_SQRT2
+
+    def _middle(self, h, temb):
+        """Conv_0, the time embedding's add and GroupNorm_1, on this rank's
+        channels under ``tp`` and gathered after, then Conv_1."""
+        tp = self.tp
+        h = self.Conv_0.local(h) if tp is not None else self.Conv_0(h)
+        if temb is not None:
+            h = h + self.Dense_0(self.act(temb), tp)[:, :, None, None]
+        h = self.GroupNorm_1(h, tp)
+        if tp is not None:
+            h = pmesh.gather_from_tp(h, tp)
+        return self.Conv_1(h)
 
 
 class ResnetBlockDDPMpp(_ResBlock):
@@ -424,10 +503,7 @@ class ResnetBlockDDPMpp(_ResBlock):
                 self.NIN_0 = NIN(in_ch, out_ch)
 
     def _forward(self, x, temb=None):
-        h = self.Conv_0(self.GroupNorm_0(x))
-        if temb is not None:
-            h = h + self.Dense_0(self.act(temb))[:, :, None, None]
-        h = self.Conv_1(self.GroupNorm_1(h))
+        h = self._middle(self.GroupNorm_0(x), temb)
         if hasattr(self, "Conv_2"):
             x = self.Conv_2(x)
         elif hasattr(self, "NIN_0"):
@@ -478,11 +554,47 @@ class ResnetBlockBigGANpp(_ResBlock):
             h, x = R.downsample_2d(h, self.fir_kernel), R.downsample_2d(x, self.fir_kernel)
         elif self.down:
             h, x = naive_downsample_2d(h), naive_downsample_2d(x)
-        h = self.Conv_0(h)
-        if temb is not None:
-            h = h + self.Dense_0(self.act(temb))[:, :, None, None]
-        h = self.GroupNorm_1(h)
-        h = self.Conv_1(h)
+        h = self._middle(h, temb)
         if hasattr(self, "Conv_2"):
             x = self.Conv_2(x)
         return self._skip(x, h)
+
+
+def set_tensor_parallel(module: nn.Module, tp) -> list:
+    """Put ``module``'s layers in tensor-parallel mode over ``tp`` (a
+    ``parallel.mesh.TensorParallel``) while its weights are still whole:
+    every conv whose output channels divide (``pmesh.tp_sharded``, the rule
+    ``shard_params`` cuts the weights by) computes its rank's channels, and
+    every ResBlock keeps Conv_0's output sharded through GroupNorm_1.
+    Returns the replicated parameters that each rank uses on its slice
+    alone (biases of the sharded convs, the ResBlocks' Dense_0 and
+    GroupNorm_1 affine), whose gradients the tp group must sum.  Raises
+    ValueError, naming the layer, for a ResBlock whose channels or
+    GroupNorm_1 groups do not divide over tp (its statistics would not be
+    local) and for int8 convolutions with ``quantize_bwd`` (the backward's
+    per-tensor scales would read one rank's slice)."""
+    partial = []
+    for name, m in module.named_modules():
+        if isinstance(m, _Int8) and getattr(m, "bwd_quant", False):
+            raise ValueError(f"tensor parallelism with quantize_bwd: {name}'s backward "
+                             f"would quantize each rank's slice with its own scales")
+        if isinstance(m, Conv) and pmesh.tp_sharded(tuple(m.weight.shape), tp.size):
+            m.tp = tp
+            if hasattr(m, "weight_cache"):
+                m.weight_cache.clear()
+            partial += [] if m.bias is None else [m.bias]
+        elif isinstance(m, _Resample) and m.with_conv and m.fir and \
+                pmesh.tp_sharded(tuple(m.Conv2d_0_weight.shape), tp.size):
+            m.tp = tp
+            partial.append(m.Conv2d_0_bias)
+        elif isinstance(m, _ResBlock):
+            c, g = m.GroupNorm_1.weight.shape[0], m.GroupNorm_1.num_groups
+            if not (pmesh.tp_sharded(tuple(m.Conv_0.weight.shape), tp.size)
+                    and g % tp.size == 0):
+                raise ValueError(f"tp={tp.size}: ResBlock {name} has {c} channels in {g} "
+                                 f"GroupNorm groups; both must divide by tp")
+            m.tp = tp
+            partial += [m.GroupNorm_1.weight, m.GroupNorm_1.bias]
+            if hasattr(m, "Dense_0"):
+                partial += [m.Dense_0.weight, m.Dense_0.bias]
+    return partial

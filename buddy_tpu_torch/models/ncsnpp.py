@@ -21,6 +21,12 @@ ResBlock convolutions (``quantize_int8`` with ``quantize_accum``,
 ``quantize_bwd`` and ``quantize_static``: kernel K10) and the fused
 up-convolutions (``fuse_resample``: K8; nothing under FIR).
 
+``set_tensor_parallel(tp)`` shards the network's convolutions over a tp
+line of ranks (``models/layers.py``); the time embedding then reaches the
+ResBlocks through ``copy_to_tp``, which sums over the group the parts of
+its gradient that each rank's Dense_0 rows give.  Without it (tp=1) the
+module is the one-process network, with no extra op.
+
 ``NCSNppTimeModule`` wraps the U-Net with the 510/128 reflect STFT, the
 pad-frames-to-16 rule and the ISTFT cropped to the input length.
 """
@@ -36,6 +42,7 @@ import torch.nn as nn
 from buddy_tpu_torch.device import resolve_device
 from buddy_tpu_torch.models import layers as L
 from buddy_tpu_torch.ops.stft import STFT, hann_window, pad_spec_frames
+from buddy_tpu_torch.parallel import mesh as pmesh
 
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _DTYPES = {None: None, "none": None, "float32": None, "bfloat16": torch.bfloat16}
@@ -178,7 +185,8 @@ class NCSNpp(nn.Module):
             modules.append(L.conv3x3(in_ch, total_channels, init_scale=init_scale, dtype=f32))
 
         self.all_modules = nn.ModuleList(modules)
-        self.output_layer = nn.Conv2d(total_channels, 2 * spatial_channels, 1)
+        self.output_layer = L.Conv(total_channels, 2 * spatial_channels, 1)
+        self.tp = None
 
     def init_(self, generator: torch.Generator) -> None:
         """Random init: DDPM variance scaling for convs and dense layers (as
@@ -190,6 +198,15 @@ class NCSNpp(nn.Module):
         with torch.no_grad():
             w.copy_(torch.randn(w.shape, generator=generator) / math.sqrt(w[0].numel()))
             self.output_layer.bias.zero_()
+
+    def set_tensor_parallel(self, tp) -> list:
+        """Shard the convolutions over ``tp`` (``layers.set_tensor_parallel``;
+        call it while the weights are whole, then ``parallel.shard_params``
+        cuts them).  Returns the replicated parameters each rank uses on its
+        slice alone."""
+        partial = L.set_tensor_parallel(self, tp)
+        self.tp = tp
+        return partial
 
     def forward(self, x, time_cond=None):
         """x: (B, spatial_channels, F, T) complex -> same-shape complex."""
@@ -215,6 +232,8 @@ class NCSNpp(nn.Module):
             m_idx += 1
             temb = modules[m_idx](act(temb))
             m_idx += 1
+            if self.tp is not None:     # every ResBlock reads its Dense_0 rows alone
+                temb = pmesh.copy_to_tp(temb, self.tp)
 
         if not self.centered:
             h0 = 2 * h0 - 1.0
@@ -304,6 +323,9 @@ class NCSNppTimeModule(nn.Module):
         self.spec = STFT(n_fft, hop_length, hann_window(n_fft), pad_mode="reflect",
                          device=device)
         self.to(device)
+
+    def set_tensor_parallel(self, tp) -> list:
+        return self.unet.set_tensor_parallel(tp)
 
     def forward(self, x, time_cond=None):
         T = x.shape[-1]

@@ -56,8 +56,31 @@ time axis: sp spreads neither the input nor the compute here
 (``parallel.waveform_sharding``); the gradient sum over the dp group counts
 each row once.
 The first rank alone writes checkpoints, ``train_log.jsonl`` and samples;
-the mesh then meets at a barrier.  Resume reads on every rank.  tp > 1
-raises (``parallel.make_mesh``).
+the mesh then meets at a barrier.  Resume reads on every rank.
+
+With tp > 1 (``exp.mesh.tp``) the network's convolutions are sharded over
+each tp line (``NCSNpp.set_tensor_parallel``, ``parallel.shard_params``):
+each rank holds and updates its rows of every conv kernel whose output
+channels divide, and Adam's moments and the EMA of those kernels are its
+blocks too, so their memory falls by 1/tp; every other leaf is replicated.
+The gradients:
+
+* a sharded kernel's is whole for its rows on its rank;
+* a replicated leaf that the forward used on this rank's channels alone
+  (the sharded convs' biases, the ResBlocks' Dense_0 and GroupNorm_1
+  affine) holds its slice's part: the tp group sums them, in one flat
+  buffer, before the dp all-reduce;
+* every other replicated leaf's is whole on each rank already (the
+  sharded layers' input gradients are summed by ``copy_to_tp``).
+
+The dp all-reduce then sums each rank's leaves with those of the same tp
+coordinate on the other dp rows.  The clip's global norm adds the squares
+of the sharded leaves over the tp group (one scalar all-reduce) to those of
+the replicated leaves, counted once.  Checkpoints gather the blocks to the
+first rank and hold the JAX layout (a run at any tp resumes them), and
+resume takes each rank's blocks.  ``heavy_logging``'s samples run the
+sharded network: each tp line samples its dp share together, with the same
+draws, so the samples do not depend on tp, and the first rank writes them.
 """
 
 from __future__ import annotations
@@ -139,20 +162,25 @@ class Trainer:
         if wrong:
             raise ValueError(f"parameters {wrong[:3]}... are not on {self.device}")
         self.trainable = [n for n, p in self.params.items() if p.requires_grad]
-        pmesh.shard_params(self.mesh, self.params.values())
-        with torch.no_grad():
-            self.ema = {n: p.detach().clone() for n, p in self.params.items()}
-            self.mu = {n: torch.zeros_like(p) for n, p in self.params.items()}
-            self.nu = {n: torch.zeros_like(p) for n, p in self.params.items()}
-        self.count = 0                # Adam's step count (int32 in the checkpoint)
-        self.it = 0
-
         self.total_params = self.network.num_params
         print("total_params: ", self.total_params / 1e6, "M")
         log_cfg = args["logging"]
         if log_cfg.get("print_model_summary", False) and self.writer:
             from buddy_tpu_torch.utils.summary import print_model_summary
             print_model_summary(dict(self.module.named_parameters()))
+        # the whole shapes (checkpoints hold them), then each rank's blocks
+        self.shapes = {n: tuple(p.shape) for n, p in self.params.items()}
+        tp = self.mesh.tp
+        partial = {id(p) for p in self.module.set_tensor_parallel(tp)} if tp is not None else ()
+        self.shardings = pmesh.shard_params(self.mesh, self.params)
+        self.sharded = [n for n in self.trainable if self.shardings[n].spec] if tp else []
+        self.partial = [n for n in self.trainable if id(self.params[n]) in partial]
+        with torch.no_grad():
+            self.ema = {n: p.detach().clone() for n, p in self.params.items()}
+            self.mu = {n: torch.zeros_like(p) for n, p in self.params.items()}
+            self.nu = {n: torch.zeros_like(p) for n, p in self.params.items()}
+        self.count = 0                # Adam's step count (int32 in the checkpoint)
+        self.it = 0
 
         # sigma bins for the loss-by-sigma statistics
         dp_hp = args["diff_params"]["sde_hp"]
@@ -237,6 +265,8 @@ class Trainer:
                 b = self._bin_stats(error.detach(), diff._std(t_mb))
                 bins = b if bins is None else tuple(u + v for u, v in zip(bins, b))
                 loss = loss + loss_mb.detach()
+        if self.partial:                # the slices' parts of the replicated leaves
+            pmesh.all_reduce_sum([self.params[n].grad for n in self.partial], self.mesh.tp.group)
         grads = [self.params[n].grad for n in self.trainable]
         group = self.mesh.groups["dp"]
         if group is not None:           # one collective: gradients, loss, bin sums
@@ -254,7 +284,16 @@ class Trainer:
         """Clip, Adam and the EMA; returns the pre-clip global norm."""
         params = [self.params[n] for n in self.trainable]
         grads = [p.grad for p in params]
-        g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        if self.sharded:        # the sharded leaves' squares over the tp group, the rest once
+            norms = dict(zip(self.trainable, torch._foreach_norm(grads)))
+            sq = torch.stack([torch.stack([norms[n] for n in self.sharded]).square().sum(),
+                              torch.stack([v for n, v in norms.items()
+                                           if not self.shardings[n].spec]).square().sum()])
+            sharded_sq = sq[:1].clone()
+            pmesh.all_reduce_sum([sharded_sq], self.mesh.tp.group)
+            g_norm = torch.sqrt(sharded_sq[0] + sq[1])
+        else:
+            g_norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
         if self.use_grad_clip:
             # optax.clip_by_global_norm: g if g_norm < max_norm else (g / g_norm) * max_norm
             keep = g_norm < self.max_grad_norm
@@ -304,17 +343,29 @@ class Trainer:
             self._metrics_acc = {k: self._metrics_acc[k] + v for k, v in metrics.items()}
 
     # ------------------------------------------------------------------
-    def opt_leaves(self) -> list:
+    def whole(self, state: dict):
+        """The JAX tree of a tree shaped as the parameters (the EMA, a
+        moment), gathered over the tp line: on its first rank, None on the
+        others."""
+        return to_jax_params(state, self.shardings)
+
+    def opt_leaves(self) -> Optional[list]:
         """The optimizer state as the JAX package's leaves: the int32 count,
-        then the first and the second moments in the JAX tree's order."""
-        return ([np.asarray(self.count, np.int32)]
-                + ckpt.tree_leaves(to_jax_params(self.mu))
-                + ckpt.tree_leaves(to_jax_params(self.nu)))
+        then the first and the second moments in the JAX tree's order (None
+        on the ranks past the first of a tp line)."""
+        mu, nu = self.whole(self.mu), self.whole(self.nu)
+        if mu is None:
+            return None
+        return [np.asarray(self.count, np.int32)] + ckpt.tree_leaves(mu) + ckpt.tree_leaves(nu)
+
+    def _whole_layout(self) -> dict:
+        """The JAX tree of the whole parameters' shapes (zeros)."""
+        return to_jax_params({n: np.zeros(s, np.float32) for n, s in self.shapes.items()})
 
     def _check_layout(self, state: dict) -> None:
-        """ValueError unless ``state`` holds every parameter in its shape."""
+        """ValueError unless ``state`` holds every parameter in its whole shape."""
         if set(state) != set(self.params) or any(
-                tuple(v.shape) != tuple(self.params[k].shape) for k, v in state.items()):
+                tuple(v.shape) != self.shapes[k] for k, v in state.items()):
             raise ValueError("the checkpoint's parameters do not match the network's")
 
     @staticmethod
@@ -328,11 +379,11 @@ class Trainer:
         mesh then meets at a barrier."""
         exp_name = self.args["exp"]["exp_name"]
         path = os.path.join(self.args["model_dir"], f"{exp_name}-{self.it}.ckpt")
+        params, ema, opt = self.whole(self.params), self.whole(self.ema), self.opt_leaves()
         if self.writer:
             gen = getattr(self.noise, "generator", None)
             ckpt.save_checkpoint(
-                path, params=to_jax_params(self.params), ema_params=to_jax_params(self.ema),
-                opt_leaves=self.opt_leaves(), it=self.it,
+                path, params=params, ema_params=ema, opt_leaves=opt, it=self.it,
                 generator_state=None if gen is None else gen.get_state().numpy(),
                 args=self.args)
             print("saving", path)
@@ -357,20 +408,22 @@ class Trainer:
             params, ema = from_jax_params(params), from_jax_params(ema)
             self._check_layout(params)
             self._check_layout(ema)
-            template = self.opt_leaves()
+            layout = self._whole_layout()
+            template = [np.asarray(0, np.int32)] + 2 * ckpt.tree_leaves(layout)
             restored = ckpt.load_opt_state(checkpoint_path, template)
         except (OSError, ValueError, KeyError) as e:
             print("Could not resume from checkpoint")
             print(e)
             return False
-        self._load_state(params, self.params)
-        self._load_state(ema, self.ema)
+        self._load_state(pmesh.local_blocks(self.mesh, params), self.params)
+        self._load_state(pmesh.local_blocks(self.mesh, ema), self.ema)
         if restored is not None:
             n = (len(template) - 1) // 2
-            layout = to_jax_params(self.mu)
             self.count = int(restored[0])
-            self._load_state(from_jax_params(ckpt.tree_like(layout, restored[1:1 + n])), self.mu)
-            self._load_state(from_jax_params(ckpt.tree_like(layout, restored[1 + n:])), self.nu)
+            self._load_state(from_jax_params(ckpt.tree_like(layout, restored[1:1 + n]), self.mesh),
+                             self.mu)
+            self._load_state(from_jax_params(ckpt.tree_like(layout, restored[1 + n:]), self.mesh),
+                             self.nu)
         else:
             self.count = 0
             for t in list(self.mu.values()) + list(self.nu.values()):
@@ -451,7 +504,8 @@ class Trainer:
             return
         if self.latest_checkpoint is not None:
             tree, _ = ckpt.load_any_checkpoint(self.latest_checkpoint, prefer_ema=True)
-            weights = {k: v.to(self.device) for k, v in from_jax_params(tree).items()}
+            weights = {k: v.to(self.device)
+                       for k, v in from_jax_params(tree, self.mesh).items()}
         else:
             weights = {k: v.detach() for k, v in self.ema.items()}
         with self.tester.network.weights(weights):

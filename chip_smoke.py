@@ -140,7 +140,20 @@ Phases, each printing one line:
    rank's draw rows, rank 0 writing five directories of 8 finite WAVs and
    rank 1 none, 2 unconditional samples at dp=2 row for row, the sampler's
    ms a step per rank; (d) ``log_spectrogram`` through K2 against its plain
-   version.  Then the total seconds.
+   version; (e) in the same world of two, the full-width network in float32
+   at exp.mesh.dp=1 x tp=2 (its convolutions column-sharded over the two
+   ranks, K1 on each rank's local channels and groups) for 2 steps at a
+   global batch of 4 x 65536 against one process (loss and grad norm every
+   step; the gradients, moments, parameters and EMA gathered to the first
+   rank after the last; the replicated leaves bit for bit between the
+   ranks), each rank's parameter + Adam + EMA bytes and peak memory beside
+   one process's, the tp collectives' bytes and ms a step, and the
+   checkpoint written at tp=2 resumed at tp=1 bit for bit; (f) a world of
+   four ranks at dp=2 x tp=2, nf=16, with ``remat``, one step against one
+   process (the recomputation's all-gathers counted); (g) K1 at each local
+   shape (e) runs (C/2 channels in G/2 groups, float32, forward and
+   backward) against its plain version, device us a launch beside the
+   whole-width launch.  Then the total seconds.
 
 A JSON line of the kernels' results precedes the last line (K1's float32
 rows from phase 6, their launches those of its training loop; K2's check
@@ -149,6 +162,7 @@ at the training shapes under its rows' ``training_shape``), which is
 exits non-zero without that line.  It imports nothing of JAX.
 """
 
+import contextlib
 import json
 import os
 import shutil
@@ -181,6 +195,31 @@ def log(msg: str) -> None:
         f.write(msg + "\n")
 
 
+PROFILE_PAD_S = 0.02            # the host's idle time at each end of a profiler window
+PROFILE_TRIES = 4               # windows a measurement may take
+_PROFILE = {"windows": 0, "retaken": 0, "events": 0, "t0": time.perf_counter()}
+
+
+@contextlib.contextmanager
+def device_profile(cpu: bool = False, **kwargs):
+    """torch.profiler over the body (the device's activity, and the host's
+    too when ``cpu``), with the host idle at each end of the window.  The
+    profiler keeps only the device activity whose timestamps fall inside
+    its window, and on the H100 machines a kernel's timestamp now and then
+    lies milliseconds before its launch on the host's clock
+    (profiler_clock_probe.py): without the margin, a window of a few short
+    calls can come back with none of their kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    activities = [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+    _PROFILE["windows"] += 1
+    with profile(activities=activities, **kwargs) as prof:
+        time.sleep(PROFILE_PAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(PROFILE_PAD_S)
+
+
 _FLUSH = {}
 
 
@@ -198,13 +237,11 @@ def flush_keys() -> set:
     """The profiler's keys of the flush's kernels (profiled once alone), so
     that the per-launch tables leave them out."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     if "keys" not in _FLUSH:
         l2_flush()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with device_profile() as prof:
             l2_flush()
-            torch.cuda.synchronize()
         _FLUSH["keys"] = {e.key for e in prof.key_averages() if e.self_device_time_total > 0}
         if not _FLUSH["keys"]:
             raise AssertionError("the profiler shows no kernel of the L2 flush")
@@ -275,51 +312,89 @@ def kernel_name(key: str) -> str:
     return key.split("(")[0].split("<")[0]
 
 
+def _retake(why: str) -> None:
+    """Count a profiler window that is taken again, and log why."""
+    _PROFILE["retaken"] += 1
+    log(f"profiler window taken again, {time.perf_counter() - _PROFILE['t0']:.0f} s into the "
+        f"run: {why}"[:400])
+
+
 def profile_device_us(fn, reps: int = 20, cold: bool = True) -> dict:
     """{kernel name: [device us, launches]} over ``reps`` calls of fn()
     under torch.profiler (after one call outside it), each call after an L2
-    flush when ``cold``; the flush's kernel is left out."""
+    flush when ``cold``; the flush's kernel is left out.  A window that
+    records no device activity is taken again, up to PROFILE_TRIES windows."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     skip = flush_keys() if cold else set()
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            if cold:
-                l2_flush()
-            fn()
-        torch.cuda.synchronize()
-    found = {}
-    for e in prof.key_averages():
-        if e.self_device_time_total > 0 and e.key not in skip:
-            f = found.setdefault(kernel_name(e.key), [0.0, 0])
-            f[0] += e.self_device_time_total
-            f[1] += e.count
+    for _ in range(PROFILE_TRIES):
+        with device_profile() as prof:
+            for _ in range(reps):
+                if cold:
+                    l2_flush()
+                fn()
+        found = {}
+        for e in prof.key_averages():
+            if e.self_device_time_total > 0 and e.key not in skip:
+                f = found.setdefault(kernel_name(e.key), [0.0, 0])
+                f[0] += e.self_device_time_total
+                f[1] += e.count
+        if found:
+            return found
+        _retake(f"no device activity in {reps} calls")
     return found
 
 
 def device_us_per_launch(fn, names, reps: int = 20, cold: bool = True) -> dict:
     """Device us per launch of each kernel in ``names`` over ``reps`` calls of
     fn().  A profile that records no launch of a kernel is taken again, up
-    to twice: the profiler now and then returns a window without the
-    device's activity."""
-    for _ in range(3):
+    to PROFILE_TRIES windows: the profiler now and then drops part of a
+    window's activity."""
+    for _ in range(PROFILE_TRIES):
         found = profile_device_us(fn, reps, cold)
         missing = [k for k in names if k not in found]
         if not missing:
             return {k: found[k][0] / found[k][1] for k in names}
-    raise AssertionError(f"profile shows no launch of {missing} in three windows")
+        _retake(f"no launch of {missing} in {reps} calls; found "
+                f"{ {k: v[1] for k, v in found.items()} }")
+    raise AssertionError(f"profile shows no launch of {missing} in {PROFILE_TRIES} windows")
+
+
+def profile_whole_calls(fn, reps: int = 20, cold: bool = True) -> dict:
+    """profile_device_us(fn, reps, cold) from a window whose launches are a
+    whole number of calls' (a call launches the same kernels each time),
+    taken again up to PROFILE_TRIES windows; {} if none is.  At some shapes
+    the profiler loses a call's launches from every window (K1's float32
+    training shapes: 19 of 20 calls in each, NVIDIA H100 80GB HBM3)."""
+    for _ in range(PROFILE_TRIES):
+        found = profile_device_us(fn, reps, cold)
+        n = sum(c for _, c in found.values())
+        if n >= reps and n % reps == 0:
+            return found
+        _retake(f"{n} launches in {reps} calls: {found}")
+    return {}
 
 
 def device_us_per_call(fn, reps: int = 20, cold: bool = True) -> float:
-    """Device us of all the kernels of one call of fn(); a profile with no
-    device time is taken again, up to twice, as in ``device_us_per_launch``."""
-    for _ in range(3):
-        us = sum(t for t, _ in profile_device_us(fn, reps, cold).values()) / reps
-        if us > 0:
-            return us
-    raise AssertionError("profile shows no device time in three windows")
+    """Device us of all the kernels of one call of fn(), from a profile of
+    whole calls (``profile_whole_calls``); without one, the call is timed
+    with CUDA events instead (``cuda_ms``, the same calls, each after an L2
+    flush when ``cold``: the span from its first kernel's start to its last
+    one's end), and the log says so."""
+    return call_us(profile_whole_calls(fn, reps, cold), fn, reps, cold)
+
+
+def call_us(found: dict, fn, reps: int = 20, cold: bool = True) -> float:
+    """Device us a call from ``profile_whole_calls``' table of ``reps`` calls
+    of fn(), or, where it is empty, from CUDA events (logged)."""
+    if found:
+        return sum(t for t, _ in found.values()) / reps
+    _PROFILE["events"] += 1
+    us = 1e3 * cuda_ms(fn, reps=reps, cold=cold)
+    log(f"profiler: no window of whole calls in {PROFILE_TRIES}; CUDA events instead: {us:.1f} us "
+        f"a call")
+    return us
 
 
 def synthesis_basis(plan):
@@ -413,11 +488,10 @@ def kernel_checks(dev):
             raise AssertionError(f"groupnorm {where}: two calls differ")
         with torch.no_grad():
             reps = 20
-            per_f = profile_device_us(lambda: K1._launch_forward(x, w, b, G, 1e-6, True), reps)
-            per_b = profile_device_us(
-                lambda: K1.group_norm_act_backward(x, dy, w, b, mr, True, False), reps)
-        us_f = sum(t for t, _ in per_f.values()) / reps
-        us_b = sum(t for t, _ in per_b.values()) / reps
+            fwd = lambda: K1._launch_forward(x, w, b, G, 1e-6, True)
+            bwd = lambda: K1.group_norm_act_backward(x, dy, w, b, mr, True, False)
+            per_f, per_b = profile_whole_calls(fwd, reps), profile_whole_calls(bwd, reps)
+            us_f, us_b = call_us(per_f, fwd, reps), call_us(per_b, bwd, reps)
         n = x.numel()
         gn_table.append(dict(shape=[B, C, H, W], us=(round(us_f, 1), round(us_b, 1)),
                              kernels={k: round(t / reps, 1) for k, (t, _) in
@@ -812,11 +886,7 @@ def fused_kernel_checks(dev):
         k5_us = {}
         with torch.no_grad():
             for what, (call, kname) in k5_names.items():
-                found = profile_device_us(call)
-                if set(found) != {kname} or found[kname][1] != 20:
-                    raise AssertionError(f"minimum_phase {what}: one call runs {found}, not one "
-                                         f"{kname}")
-                k5_us[what] = (found[kname][0] / 20,
+                k5_us[what] = (one_launch(call, kname, f"minimum_phase {what}"),
                                device_us_per_launch(call, [kname], cold=False)[kname])
             t_f = (cuda_ms(lambda: K5.minimum_phase_version(h)),
                    cuda_ms(lambda: K5.minimum_phase_plain(h)), None)
@@ -1131,13 +1201,15 @@ def one_launch(call, kname: str, what: str) -> float:
     """Profiles 20 calls (cold) and requires exactly one launch of ``kname``
     a call and no other kernel (no library FFT); returns its device us.  A
     window that records fewer launches than calls is taken again, up to
-    twice (the profiler now and then drops part of a window's activity)."""
-    for _ in range(3):
+    PROFILE_TRIES windows (the profiler now and then drops part of a
+    window's activity)."""
+    for _ in range(PROFILE_TRIES):
         found = profile_device_us(call)
         if set(found) - {kname} or found.get(kname, [0, 0])[1] > 20:
             break
         if found.get(kname, [0, 0])[1] == 20:
             return found[kname][0] / 20
+        _retake(f"{what}: {found.get(kname, [0, 0])[1]} launches of {kname} in 20 calls")
     raise AssertionError(f"{what}: one call runs {found}, not one {kname}")
 
 
@@ -1408,8 +1480,7 @@ def profile_main_path(run, n_steps: int) -> None:
     share of the wall time.  The full per-kernel table goes to
     chiprun_out/profile_main_path.txt."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with device_profile(cpu=True) as prof:
         t0 = time.perf_counter()
         run()
         wall = time.perf_counter() - t0
@@ -1955,8 +2026,7 @@ def profile_train_step(trainer) -> dict:
     and idle share of the wall time; the per-kernel table goes to
     chiprun_out/profile_train_step.txt."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with device_profile(cpu=True) as prof:
         t0 = time.perf_counter()
         trainer.train_step()
         torch.cuda.synchronize()
@@ -2514,8 +2584,7 @@ def profile_run(run, n_steps: int, names, label: str) -> dict:
     device's idle share of the wall; the per-kernel table goes to
     chiprun_out/profile_<label>.txt."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with device_profile(cpu=True) as prof:
         t0 = time.perf_counter()
         run()
         wall = (time.perf_counter() - t0) * 1e3
@@ -2871,7 +2940,6 @@ def fir_blind_run(dev, wrappers) -> dict:
     more run profiled (device ms, launches and idle a step; the FIR
     convolutions' device ms by kernel name)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     args, net, tester, sampler_s, run = blind_tester(
         dev, steps=FIR_STEPS, network=FIR_NET, run_name="fir_residual")
     t0 = time.perf_counter()
@@ -2887,8 +2955,7 @@ def fir_blind_run(dev, wrappers) -> dict:
     if not k1_per_step > 0 or not launches["groupnorm_silu_bwd"] > 0:
         raise AssertionError(f"run (a): K1 launches {launches}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 record_shapes=True) as prof:
+    with device_profile(cpu=True, record_shapes=True) as prof:
         t1 = time.perf_counter()
         run()
         wall = (time.perf_counter() - t1) * 1e3
@@ -3053,11 +3120,28 @@ MESH_TRAIN = {"dp2": (["exp.mesh.dp=2"], 2, 21),          # overrides, steps, no
               "sp2": (["exp.mesh.dp=1", "exp.mesh.sp=2"], 1, 22)}
 MESH_TESTER_SEEDS = (42, 43)    # the tester's noise and reset noise (testing/tester.py)
 MESH_TIMEOUT = 600
+# (e): overrides, steps, noise seed, first of mesh_batches(); (f) likewise, in a world of four
+MESH_TP = (["exp.mesh.dp=1", "exp.mesh.tp=2"], 2, 23, 0)
+MESH_TP4 = (["exp.mesh.dp=2", "exp.mesh.tp=2", "network.nf=16", "network.remat=true"], 1, 24, 2)
+# (e)'s limit on a rank's parameter + Adam + EMA bytes over one process's: of
+# the shipped network's 27,736,590 parameters, 24,677,636 are conv kernels
+# whose output channels divide by 2, so the rule gives 0.555
+TP_STATE_RATIO = 0.56
 # run (b)'s limit on the parameters' and the EMA's largest difference from one
 # process: ten times the largest that sound runs read (dp=2 after 2 steps:
 # parameters 3.4886e-6, EMA 3.4872e-6; sp=2: 0; NVIDIA H100 80GB HBM3, 700 W),
 # well under one Adam step of lr = 1e-4, which a wrong update moves by
 MESH_PARAM_TOL = 3.5e-5
+# (e) and (f): the gathered state against one process.  Each rank's
+# half-width convolutions take cuDNN algorithms of their own, so the
+# gradients' rounding is not dp's: limits of ten times the largest readings
+# of sound runs (NVIDIA H100 80GB HBM3, 700 W) on the largest error over
+# mesh_compare's gradient rule (grads, mu, nu; (e) read 2.5473 at
+# all_modules.23.Conv_1's weight, (f) 0.1406) and on the parameters' and the
+# EMA's largest difference ((e) 2.5702e-6, (f) 1.9076e-7), which a wrong
+# update moves by up to lr = 1e-4
+TP_GRAD_LIMIT = 25.0
+TP_PARAM_TOL = 2.6e-5
 
 
 def mesh_train_overrides(extra) -> list:
@@ -3104,31 +3188,199 @@ def mesh_state(trainer) -> dict:
     return {"grads": grads, **state}
 
 
-def mesh_compare(ours: dict, ref: dict) -> dict:
+def mesh_compare(ours: dict, ref: dict, checked: bool = True) -> dict:
     """The state after the last step against one process's: gradients (of
     the last step) at ``gradient_tolerances``' rule (1e-4 of each leaf's
     peak, no less than 1e-6 of the largest leaf's), mu at that rule of its
     own leaves, nu at twice it (nu ~ g^2), parameters and EMA within
     MESH_PARAM_TOL.  Returns the
     largest error / tolerance of each and the largest parameter and EMA
-    differences; raises beyond a tolerance."""
+    differences; raises beyond a tolerance unless not ``checked`` (the
+    caller then holds the readings to limits of its own)."""
+    return _compare(ours, ref, check if checked else lambda *a: None)
+
+
+def _compare(ours: dict, ref: dict, check) -> dict:
     worst = {}
     for what, factor in (("grads", 1.0), ("mu", 1.0), ("nu", 2.0)):
         top = max(float(v.abs().max()) for v in ref[what].values())
-        w = 0.0
+        w, leaf = 0.0, None
         if ours[what].keys() != ref[what].keys():
             raise AssertionError(f"mesh train: {what} leaves differ")
         for k, r in ref[what].items():
             tol = factor * max(1e-4 * float(r.abs().max()), 1e-6 * top)
             e = max_err(ours[what][k], r)
             check(f"mesh train {what} {k}", e, tol)
-            w = max(w, e / tol if tol else 0.0)
-        worst[what] = round(w, 4)
+            if tol and e / tol > w:
+                w, leaf = e / tol, k
+        worst[what], worst[what + "_leaf"] = round(w, 4), leaf
     for what in ("params", "ema"):
         d = max(max_err(ours[what][k], r) for k, r in ref[what].items())
         check(f"mesh train {what}", d, MESH_PARAM_TOL)
         worst[what + "_max_diff"] = d
     return worst
+
+
+def state_bytes(trainer) -> int:
+    """The bytes of this rank's parameters, Adam's moments and EMA."""
+    return sum(t.numel() * t.element_size()
+               for st in (trainer.params, trainer.mu, trainer.nu, trainer.ema) for t in st.values())
+
+
+def gn1_shapes(module, batch: int, dev) -> list:
+    """[(B, C, H, W), G, silu] of each ResBlock's GroupNorm_1 at ``batch`` x
+    65536, whole (one no-grad forward, pre-hooks on those modules)."""
+    import torch
+    import torch.nn.functional as F
+    from buddy_tpu_torch.models.layers import _ResBlock
+    calls = []
+    hooks = [m.GroupNorm_1.register_forward_pre_hook(
+        lambda m, a: calls.append((list(a[0].shape), m.num_groups, m.act is F.silu)))
+        for m in module.modules() if isinstance(m, _ResBlock)]
+    try:
+        with torch.no_grad():
+            module(torch.zeros((batch, 1, 65536), device=dev), torch.zeros((batch,), device=dev))
+    finally:
+        for h in hooks:
+            h.remove()
+    return sorted({(tuple(s), g, a) for s, g, a in calls})
+
+
+class TpCollectives:
+    """A stand-in for ``torch.distributed`` in ``parallel.mesh`` that times
+    (between synchronisations) and counts the bytes each rank sends in the
+    all-gathers and all-reduces on the tp group; every other call passes."""
+
+    def __init__(self, inner, group):
+        self.inner, self.group = inner, group
+        self.bytes = self.gathers = self.reduces = 0
+        self.ms = 0.0
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def _timed(self, fn, t, args, group, kwargs, what):
+        import torch
+        if group is not self.group:
+            return fn(*args, group=group, **kwargs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, group=group, **kwargs)
+        torch.cuda.synchronize()
+        self.ms += (time.perf_counter() - t0) * 1e3
+        self.bytes += t.numel() * t.element_size()
+        setattr(self, what, getattr(self, what) + 1)
+        return out
+
+    def all_gather(self, parts, t, group=None, **kw):
+        return self._timed(self.inner.all_gather, t, (parts, t), group, kw, "gathers")
+
+    def all_reduce(self, t, group=None, **kw):
+        return self._timed(self.inner.all_reduce, t, (t,), group, kw, "reduces")
+
+
+def tp_whole_state(trainer):
+    """The gradients, parameters, EMA and moments gathered over the tp line
+    (CPU tensors, the port's names) on its first rank, None on the others;
+    every rank of the line must call it."""
+    from buddy_tpu_torch.models.convert import from_jax_params
+    grads = {k: p.grad for k, p in trainer.params.items() if p.grad is not None}
+    trees = {w: trainer.whole(st) for w, st in (("grads", grads), ("params", trainer.params),
+                                                 ("ema", trainer.ema), ("mu", trainer.mu),
+                                                 ("nu", trainer.nu))}
+    if trees["params"] is None:
+        return None
+    return {w: from_jax_params(t) for w, t in trees.items()}
+
+
+def replicated_digest(trainer) -> str:
+    """A digest of the leaves every rank of a tp line holds whole."""
+    import hashlib
+    h = hashlib.sha256()
+    for st in (trainer.params, trainer.ema, trainer.mu, trainer.nu):
+        for k in sorted(st):
+            if not trainer.shardings[k].spec:
+                h.update(st[k].detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def record_gn_calls(module) -> tuple:
+    """Pre-hooks on every GroupNormAct that append (C, groups, sharded) of
+    each call to the returned list: the channels and groups K1 runs at."""
+    from buddy_tpu_torch.models.layers import GroupNormAct
+    calls = []
+
+    def hook(m, a):
+        tp = a[1] if len(a) > 1 else None
+        calls.append((int(a[0].shape[1]), m.num_groups // (tp.size if tp else 1), tp is not None))
+    return calls, [m.register_forward_pre_hook(hook) for m in module.modules()
+                   if isinstance(m, GroupNormAct)]
+
+
+def mesh_tp_rank(dev, rank: int, world: int) -> dict:
+    """(e) (world 2) or (f) (world 4) on one rank: the trainer from the same
+    weights, global batches and draws as the one-process run; per step the
+    loss, norm, ms, K1 and K2 launches, the GroupNorm calls' channels and
+    groups, and the tp collectives' bytes, count and ms; this rank's state
+    bytes and peak memory; the gathered state against the one process's
+    (on each tp line's first rank), the replicated leaves' digest; (e) then
+    writes a checkpoint (the first rank), (f) counts a no-grad forward's
+    all-gathers beside the step's (the recomputation's)."""
+    import numpy as np
+    import torch
+    from buddy_tpu_torch.parallel import mesh as pmesh
+    from buddy_tpu_torch.sampling.euler_heun import NoiseSource
+    case = "tp2" if world == 2 else "tp4"
+    extra, steps, seed, first = MESH_TP if world == 2 else MESH_TP4
+    t_start = time.perf_counter()
+    with np.load(os.path.join(MESH_DIR, "batches.npz")) as f:
+        batches = [f[k] for k in sorted(f.files)]
+    torch.cuda.reset_peak_memory_stats()
+    trainer, _ = build_trainer(dev, mesh_train_overrides(extra),
+                               loader=ReplayLoader(batches[first:first + steps]),
+                               noise=NoiseSource(torch.Generator().manual_seed(seed)))
+    inner, coll = pmesh.dist, TpCollectives(pmesh.dist, trainer.mesh.tp.group)
+    calls, hooks = record_gn_calls(trainer.module)
+    pmesh.dist = coll
+    rows = []
+    try:
+        for _ in range(steps):
+            calls.clear()
+            before = (coll.bytes, coll.ms, coll.gathers, coll.reduces)
+            row = mesh_steps(trainer, 1)[0]
+            row.update(gn=sorted(set(calls)), tp_bytes=coll.bytes - before[0],
+                       tp_ms=coll.ms - before[1], tp_gathers=coll.gathers - before[2],
+                       tp_reduces=coll.reduces - before[3])
+            rows.append(row)
+        if world == 4:          # the forward alone: the step's extra gathers are remat's
+            g0 = coll.gathers
+            with torch.no_grad():
+                trainer._net(torch.zeros((2, 65536), device=dev), torch.ones((2,), device=dev))
+            forward_gathers = coll.gathers - g0
+    finally:
+        pmesh.dist = inner
+        for h in hooks:
+            h.remove()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    whole = tp_whole_state(trainer)
+    res = {"steps": rows, "mesh": trainer.mesh.shape, "coords": trainer.mesh.coords,
+           "state_bytes": state_bytes(trainer), "peak_gib": peak,
+           "replicated_digest": replicated_digest(trainer), "whole": whole is not None}
+    if world == 4:
+        res["forward_gathers"] = forward_gathers
+    if whole is not None:
+        ref = torch.load(os.path.join(MESH_DIR, f"ref_{case}.pt"), map_location="cpu")
+        res["compare"] = mesh_compare(whole, ref, checked=False)
+        res["digest"] = mesh_digest(whole)
+        if world == 2:
+            torch.save(whole, os.path.join(MESH_DIR, "tp2_whole.pt"))
+    if world == 2:
+        trainer.save_checkpoint()
+        res["checkpoint"] = trainer.latest_checkpoint
+    res["seconds"] = time.perf_counter() - t_start
+    del trainer
+    torch.cuda.empty_cache()
+    return res
 
 
 def mesh_digest(state: dict) -> str:
@@ -3146,16 +3398,26 @@ def mesh_train_reference(dev, batches) -> dict:
     import torch
     from buddy_tpu_torch.sampling.euler_heun import NoiseSource
     out = {}
-    for case, (_, steps, seed) in MESH_TRAIN.items():
-        first = 0 if case == "dp2" else 2
-        trainer, _ = build_trainer(dev, mesh_train_overrides(["exp.mesh.dp=1"]),
+    cases = {case: (["exp.mesh.dp=1"], steps, seed, 0 if case == "dp2" else 2)
+             for case, (_, steps, seed) in MESH_TRAIN.items()}
+    cases["tp2"] = (["exp.mesh.dp=1"], *MESH_TP[1:])
+    cases["tp4"] = (["exp.mesh.dp=1", *MESH_TP4[0][2:]], *MESH_TP4[1:])
+    for case, (extra, steps, seed, first) in cases.items():
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        trainer, _ = build_trainer(dev, mesh_train_overrides(extra),
                                    loader=ReplayLoader(batches[first:first + steps]),
                                    noise=NoiseSource(torch.Generator().manual_seed(seed)))
         out[case] = mesh_steps(trainer, steps)
         torch.save(mesh_state(trainer), os.path.join(MESH_DIR, f"ref_{case}.pt"))
         out[case + "_params"] = trainer.total_params
+        out[case + "_state_bytes"] = state_bytes(trainer)
+        out[case + "_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        if case == "tp2":
+            out["gn_shapes"] = gn1_shapes(trainer.module, MESH_BATCH, dev)
         del trainer
         torch.cuda.empty_cache()
+        out[case + "_s"] = time.perf_counter() - t0
     return out
 
 
@@ -3296,25 +3558,30 @@ def mesh_tester_reference(dev) -> dict:
 
 
 def mesh_rank_main(argv) -> int:
-    """A rank of phase 10's world of two (``chip_smoke.py --mesh-rank <rank>``):
-    gloo on the one card, runs (b) and (c), results to MESH_DIR."""
+    """A rank of one of phase 10's worlds (``chip_smoke.py --mesh-rank <rank>
+    <world>``): gloo on the one card; the world of two runs (b), (c) and
+    (e), the world of four (f); results to MESH_DIR."""
+    import datetime
     import torch
     import torch.distributed as dist
-    rank = int(argv[0])
+    rank, world = int(argv[0]), int(argv[1])
     sys.path.insert(0, REPO)
     torch.cuda.set_device(0)
     from buddy_tpu_torch.device import resolve_device
     dev = resolve_device(None)
     torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
-    dist.init_process_group("gloo", init_method=f"file://{os.path.join(MESH_DIR, 'store')}",
-                            rank=rank, world_size=2)
+    dist.init_process_group("gloo", init_method=f"file://{os.path.join(MESH_DIR, f'store{world}')}",
+                            rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=MESH_TIMEOUT))
     try:
-        res = {"rank": rank, "device": str(dev), "backend": dist.get_backend(),
-               "train": mesh_train_rank(dev, rank), "tester": mesh_tester_rank(dev, rank)}
+        res = {"rank": rank, "device": str(dev), "backend": dist.get_backend()}
+        if world == 2:
+            res.update(train=mesh_train_rank(dev, rank), tester=mesh_tester_rank(dev, rank))
+        res["tp"] = mesh_tp_rank(dev, rank, world)
         dist.barrier()
     finally:
         dist.destroy_process_group()
-    with open(os.path.join(MESH_DIR, f"rank{rank}.json"), "w") as f:
+    with open(os.path.join(MESH_DIR, f"world{world}_rank{rank}.json"), "w") as f:
         json.dump(res, f)
     return 0
 
@@ -3392,12 +3659,13 @@ def mesh_spectrogram(dev) -> None:
         f"({e / float(mag_ref.max()):.2e} of the peak; tolerance 1e-4 of the peak)")
 
 
-def mesh_world() -> list:
-    """Start the world of two (``chip_smoke.py --mesh-rank <r>``), wait for
-    both ranks (killed at the time limit), and return their results."""
+def mesh_world(world: int = 2) -> list:
+    """Start a world of ``world`` ranks (``chip_smoke.py --mesh-rank <r>
+    <world>``), wait for every rank (killed at the time limit), and return
+    their results."""
     procs = [subprocess.Popen([sys.executable, os.path.join(REPO, "chip_smoke.py"), "--mesh-rank",
-                               str(r)], cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True) for r in range(2)]
+                               str(r), str(world)], cwd=REPO, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for r in range(world)]
     outs = []
     try:
         for p in procs:
@@ -3410,12 +3678,212 @@ def mesh_world() -> list:
     bad = [f"rank {r}: exit {p.returncode}\n{o[0][-1500:]}\n{o[1][-3000:]}"
            for r, (p, o) in enumerate(zip(procs, outs)) if p.returncode != 0]
     if bad:
-        raise AssertionError("phase 10's ranks failed:\n" + "\n".join(bad))
+        raise AssertionError(f"phase 10's world of {world} failed:\n" + "\n".join(bad))
     ranks = []
-    for r in range(2):
-        with open(os.path.join(MESH_DIR, f"rank{r}.json")) as f:
+    for r in range(world):
+        with open(os.path.join(MESH_DIR, f"world{world}_rank{r}.json")) as f:
             ranks.append(json.load(f))
     return ranks
+
+
+def k1_tp_checks(dev, shapes) -> list:
+    """(g): K1 at each local shape of (e) ((B, C / 2, H, W) in G / 2 groups,
+    float32, forward and backward with d weight and d bias) against the
+    plain version (k1_training_checks' tolerances), its ms beside the plain
+    version's and F.group_norm's, and the device us a launch (cold) there
+    and at the whole width (B, C, H, W) in G groups."""
+    import torch
+    import torch.nn.functional as F
+    from buddy_tpu_torch.ops import groupnorm as K1
+    g = torch.Generator(device=dev).manual_seed(3)
+    rows = []
+    for (B, C, H, W), G, silu in shapes:
+        row = {"shape": [B, C // 2, H, W], "groups": G // 2, "silu": silu}
+        for what, (c, groups) in (("local", (C // 2, G // 2)), ("whole", (C, G))):
+            x = (torch.randn((B, c, H, W), generator=g, device=dev) * 2 + 0.3).contiguous(
+                memory_format=torch.channels_last)
+            dy = torch.randn((B, c, H, W), generator=g, device=dev).contiguous(
+                memory_format=torch.channels_last)
+            w = 1 + 0.1 * torch.randn(c, generator=g, device=dev)
+            b = 0.1 * torch.randn(c, generator=g, device=dev)
+            if what == "local":
+                xp, wp, bp = (t.detach().clone().requires_grad_(True) for t in (x, w, b))
+                yp = K1.group_norm_act_plain(xp, wp, bp, groups, 1e-6, silu=silu)
+                dxp, dwp, dbp = torch.autograd.grad(yp, (xp, wp, bp), dy, retain_graph=True)
+                y_k, mr = K1._launch_forward(x, w, b, groups, 1e-6, silu)
+                dx, dw, db = K1.group_norm_act_backward(x, dy, w, b, mr, silu, True)
+                where = f"(g) K1 at the local shape {row['shape']} in {groups} groups"
+                err = {"y": max_err(y_k, yp.detach()), "dx": max_err(dx, dxp),
+                       "dweight": max_err(dw, dwp), "dbias": max_err(db, dbp)}
+                for k, ref, rel in (("y", yp.detach(), 1e-5), ("dx", dxp, 1e-5),
+                                    ("dweight", dwp, 1e-4), ("dbias", dbp, 1e-4)):
+                    check(f"{where} {k}", err[k], rel * float(ref.abs().max()))
+                row["err"] = err
+                # ms (cold) [kernel, plain, library] forward and backward, as
+                # k1_training_checks times them at the whole widths
+                act = F.silu if silu else (lambda v: v)
+                xl, wl, bl = (t.detach().clone().requires_grad_(True) for t in (x, w, b))
+                yl = act(F.group_norm(xl, groups, wl, bl, 1e-6))
+                with torch.no_grad():
+                    row["fwd_ms"] = [round(cuda_ms(f, 10), 4) for f in (
+                        lambda: K1.group_norm_act(x, w, b, groups, 1e-6, silu=silu),
+                        lambda: K1.group_norm_act_plain(x, w, b, groups, 1e-6, silu=silu),
+                        lambda: act(F.group_norm(x, groups, w, b, 1e-6)))]
+                    bwd_k = cuda_ms(lambda: K1.group_norm_act_backward(x, dy, w, b, mr, silu,
+                                                                       True), 10)
+                row["bwd_ms"] = [round(t, 4) for t in (
+                    bwd_k,
+                    cuda_ms(lambda: torch.autograd.grad(yp, (xp, wp, bp), dy, retain_graph=True),
+                            10),
+                    cuda_ms(lambda: torch.autograd.grad(yl, (xl, wl, bl), dy, retain_graph=True),
+                            10))]
+                n = x.numel()
+                row["bound_ms"] = [round(bound_ms(8 * n, 10 * n)[0], 4),
+                                   round(bound_ms(12 * n, 20 * n)[0], 4)]
+                del xp, yp, dxp, dwp, dbp, y_k, dx, dw, db, xl, yl
+            with torch.no_grad():
+                mr = K1._launch_forward(x, w, b, groups, 1e-6, silu)[1]
+                fwd = device_us_per_launch(lambda: K1._launch_forward(x, w, b, groups, 1e-6, silu),
+                                           ("gn_stats_kernel", "gn_apply_kernel"), 10)
+                bwd = device_us_per_launch(
+                    lambda: K1.group_norm_act_backward(x, dy, w, b, mr, silu, True),
+                    ("gn_bwd_stats_kernel", "gn_bwd_apply_kernel"), 10)
+                row[what + "_device_us"] = [round(sum(fwd.values()), 1),
+                                            round(sum(bwd.values()), 1)]
+            del x, dy, mr
+            torch.cuda.empty_cache()
+        rows.append(row)
+    return rows
+
+
+def tp_state_checks(where: str, worst: dict) -> None:
+    """A tp run's gathered state against one process: ``mesh_compare``'s
+    readings held to TP_GRAD_LIMIT and TP_PARAM_TOL."""
+    for what in ("grads", "mu", "nu"):
+        check(f"{where} {what}: largest error over the gradient rule", worst[what],
+              TP_GRAD_LIMIT)
+    for what in ("params", "ema"):
+        check(f"{where} {what}: largest difference", worst[what + "_max_diff"], TP_PARAM_TOL)
+
+
+def mesh_tp_phase(dev, ref, ranks2) -> None:
+    """(e), (f) and (g): the tp runs' checks against the one-process runs,
+    the tp=2 checkpoint resumed at tp=1, the world of four, K1 at the local
+    shapes; their seconds on a line of their own."""
+    import torch
+    t0 = time.perf_counter()
+    # (e): each rank's steps against the one process, its K1 calls at the local shapes
+    tp = [rk["tp"] for rk in ranks2]
+    whole_shapes = {(s[1], g) for s, g, _ in ref["gn_shapes"]}
+    local_shapes = {(c // 2, g // 2) for c, g in whole_shapes}
+    if tp[0]["replicated_digest"] != tp[1]["replicated_digest"]:
+        raise AssertionError("(e) the ranks' replicated leaves differ")
+    if not tp[0]["whole"] or tp[1]["whole"]:
+        raise AssertionError("(e) the gathered state is not on the first rank alone")
+    for r, rk in enumerate(tp):
+        if rk["mesh"] != {"dp": 1, "tp": 2} or rk["coords"] != {"dp": 0, "tp": r}:
+            raise AssertionError(f"(e) rank {r}: mesh {rk['mesh']} coords {rk['coords']}")
+        for i, (s, s_ref) in enumerate(zip(rk["steps"], ref["tp2"])):
+            for what in ("loss", "grad_norm"):
+                check(f"(e) tp2 rank {r} step {i} {what} (relative)",
+                      abs(s[what] - s_ref[what]) / abs(s_ref[what]), 1e-4)
+            sharded = {(c, g) for c, g, on in s["gn"] if on}
+            if min(s["launches"]) == 0 or not local_shapes <= sharded:
+                raise AssertionError(f"(e) rank {r} step {i}: K1 / K2 launches {s['launches']}, "
+                                     f"K1 sharded at {sorted(sharded)}, expected "
+                                     f"{sorted(local_shapes)}")
+    tp_state_checks("(e)", tp[0]["compare"])
+    ratio = tp[0]["state_bytes"] / ref["tp2_state_bytes"]
+    if ratio > TP_STATE_RATIO:
+        raise AssertionError(f"(e) a rank's parameter + Adam + EMA bytes are {ratio:.4f} of one "
+                             f"process's")
+    # the tp=2 checkpoint at tp=1, bit for bit with the gathered state
+    whole = torch.load(os.path.join(MESH_DIR, "tp2_whole.pt"))
+    one, _ = build_trainer(dev, mesh_train_overrides([
+        "exp.mesh.dp=1", "exp.resume=True", f"exp.resume_checkpoint={tp[0]['checkpoint']}"]),
+        loader=ReplayLoader([]))
+    same = one.it == MESH_TP[1] and one.count == MESH_TP[1] and all(
+        torch.equal(getattr(one, w)[k].cpu(), v) for w in ("params", "ema", "mu", "nu")
+        for k, v in whole[w].items())
+    if not same:
+        raise AssertionError("(e) the checkpoint written at tp=2 does not resume at tp=1 bit for "
+                             "bit")
+    del one, whole
+    torch.cuda.empty_cache()
+    e = {"loss": [round(s["loss"], 6) for s in tp[0]["steps"]],
+         "loss_one_process": [round(s["loss"], 6) for s in ref["tp2"]],
+         "grad_norm": [round(s["grad_norm"], 6) for s in tp[0]["steps"]],
+         "ms_per_step_by_rank": [[round(s["ms"], 1) for s in rk["steps"]] for rk in tp],
+         "ms_per_step_one_process": [round(s["ms"], 1) for s in ref["tp2"]],
+         "tp_collectives_a_step_rank0": [{"MB": round(s["tp_bytes"] / 1e6, 1),
+                                          "ms": round(s["tp_ms"], 1),
+                                          "all_gathers": s["tp_gathers"],
+                                          "all_reduces": s["tp_reduces"]}
+                                         for s in tp[0]["steps"]],
+         "k1_fwd_bwd_k2_an_syn_launches_a_step": [s["launches"] for s in tp[0]["steps"]],
+         "k1_local_channels_groups": sorted(local_shapes),
+         "state_bytes_by_rank": [rk["state_bytes"] for rk in tp],
+         "state_bytes_one_process": ref["tp2_state_bytes"], "state_ratio": round(ratio, 4),
+         "peak_gib_by_rank": [round(rk["peak_gib"], 2) for rk in tp],
+         "peak_gib_one_process": round(ref["tp2_peak_gib"], 2),
+         "worst_error_over_tolerance": tp[0]["compare"],
+         "rank_seconds": [round(rk["seconds"], 1) for rk in tp]}
+    log(f"(e) the full-width network ({ref['tp2_params'] / 1e6:.2f} M params) trained at "
+        f"exp.mesh.dp=1 x tp=2 on two ranks of the one card over gloo (CUDA tensors), float32, "
+        f"a global batch of {MESH_BATCH} x 65536, deterministic cuDNN, 2 steps against one process "
+        f"at the same batches and draws: loss and grad norm every step (1e-4 relative), the "
+        f"gradients, moments, parameters and EMA gathered to rank 0 after the last "
+        f"(within {TP_GRAD_LIMIT} times gradient_tolerances' rule; {TP_PARAM_TOL}), the "
+        f"replicated leaves bit for bit "
+        f"between the ranks, K1 forward and backward at the local channels and groups and K2 in "
+        f"every rank's step, the checkpoint written at tp=2 resumed at tp=1 bit for bit; two "
+        f"processes share one card, so these ms are not a two-card figure: " + json.dumps(e))
+
+    # (f): a world of four at dp=2 x tp=2, nf=16, remat
+    t1 = time.perf_counter()
+    ranks4 = mesh_world(4)
+    t_world4 = time.perf_counter() - t1
+    f4 = [rk["tp"] for rk in ranks4]
+    lines = [r for r, rk in enumerate(f4) if rk["whole"]]
+    tp_state_checks("(f)", f4[0]["compare"])
+    if lines != [0, 2] or f4[0]["digest"] != f4[2]["digest"]:
+        raise AssertionError(f"(f) the tp lines' first ranks {lines} and their gathered states "
+                             f"differ")
+    if len({rk["replicated_digest"] for rk in f4}) != 1:
+        raise AssertionError("(f) the ranks' replicated leaves differ")
+    for r, rk in enumerate(f4):
+        s, s_ref = rk["steps"][0], ref["tp4"][0]
+        for what in ("loss", "grad_norm"):
+            check(f"(f) rank {r} {what} (relative)", abs(s[what] - s_ref[what]) / abs(s_ref[what]),
+                  1e-4)
+        if min(s["launches"]) == 0 or s["tp_gathers"] <= rk["forward_gathers"]:
+            raise AssertionError(f"(f) rank {r}: launches {s['launches']}, all-gathers "
+                                 f"{s['tp_gathers']} a step against {rk['forward_gathers']} a "
+                                 f"forward")
+    log(f"(f) nf=16 with remat at exp.mesh.dp=2 x tp=2 on four ranks of the one card over gloo, "
+        f"one step at a global batch of {MESH_BATCH} x 65536 against one process: loss and grad "
+        f"norm on every rank (1e-4 relative), the state gathered on each tp line's first rank "
+        f"(ranks 0 and 2, equal digests) against the one process's, the replicated leaves bit "
+        f"for bit on all four; the step's tp all-gathers {f4[0]['steps'][0]['tp_gathers']} "
+        f"against a forward's {f4[0]['forward_gathers']} (remat's recomputation gathers again): "
+        + json.dumps({"loss": [round(rk["steps"][0]["loss"], 6) for rk in f4],
+                      "loss_one_process": round(ref["tp4"][0]["loss"], 6),
+                      "worst_error_over_tolerance": f4[0]["compare"],
+                      "ms_by_rank": [round(rk["steps"][0]["ms"], 1) for rk in f4],
+                      "world_s": round(t_world4, 1)}))
+
+    # (g): K1 at the local shapes beside the whole width
+    t1 = time.perf_counter()
+    rows = k1_tp_checks(dev, ref["gn_shapes"])
+    t_g = time.perf_counter() - t1
+    log("(g) K1 float32 at the local shapes of (e) (C/2 channels in G/2 groups) against its "
+        "plain version (y, dx at 1e-5, d weight and d bias at 1e-4 of their peaks); device us a "
+        "launch cold [fwd, bwd], local beside whole width; at the local shape ms cold [kernel, "
+        "plain, library] forward and backward and the byte bound [fwd, bwd]: " + json.dumps(rows))
+    log(f"phase 10 (e)-(g): {time.perf_counter() - t0 + ref['tp2_s'] + ref['tp4_s'] + max(tp[0]['seconds'], tp[1]['seconds']):.1f} s "
+        f"(one-process references {ref['tp2_s'] + ref['tp4_s']:.1f} s, (e) in the world of two "
+        f"{max(tp[0]['seconds'], tp[1]['seconds']):.1f} s a rank, the world of four "
+        f"{t_world4:.1f} s, (g) {t_g:.1f} s)")
 
 
 def mesh_phase(dev) -> None:
@@ -3511,13 +3979,14 @@ def mesh_phase(dev) -> None:
         f"step by rank, cold and warm (two processes on one card): {sampler_ms}; the "
         f"one-process references took {t_ref:.1f} s, the world of two {t_world:.1f} s")
     mesh_spectrogram(dev)
+    mesh_tp_phase(dev, ref_train, ranks)
     # only the ranks' results are kept: the state files, checkpoints, WAV
     # sets and arrays would take chiprun_out/ past what a run brings back
     for name in os.listdir(MESH_DIR):
         p = os.path.join(MESH_DIR, name)
         if os.path.isdir(p):
             shutil.rmtree(p)
-        elif not (name.startswith("rank") and name.endswith(".json")):
+        elif not (name.startswith("world") and name.endswith(".json")):
             os.remove(p)
 
 
@@ -3677,6 +4146,9 @@ def main() -> int:
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": c["bound"][0],
                         "bound_by": c["bound"][1], "library_ms": lib_ms, "shape": c["shape"],
                         **c.get("extra", {})})
+    log(f"profiler windows: {_PROFILE['windows']} ({PROFILE_PAD_S} s idle at each end), taken "
+        f"again (launches missing): {_PROFILE['retaken']}; calls timed with CUDA events after "
+        f"{PROFILE_TRIES} such windows: {_PROFILE['events']}")
     log(f"chip_smoke: all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -20,6 +20,13 @@ import jax.numpy as jnp
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+# The host's cores shared among the pytest-xdist workers: PyTorch's CPU
+# operators would otherwise start a thread per core in every worker, and
+# their parallel regions, each waiting for its slowest thread, slow down
+# many times over when the workers' threads outnumber the cores.
+torch.set_num_threads(max(1, (os.cpu_count() or 1)
+                          // int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1"))))
+
 TINY_NET = [
     "network.nf=8",
     "network.ch_mult=[1,2]",

@@ -289,7 +289,13 @@ def _emu_conv(so, xq, wq, sw, kind, dtype, s_x=None, bias=None, raw=False):
     return y
 
 
-def test_cuda_source_under_emulation(tmp_path):
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """The emulated library, compiled once for the module's tests."""
+    return _emulated_library(tmp_path_factory.mktemp("emu"))
+
+
+def test_cuda_source_under_emulation(emulated):
     """csrc/qconv.cu under the g++ emulation against the plain versions, bit
     for bit: quantized activations (dynamic and per channel), weights (plain
     and folded), int32 sums, and the dequantized outputs with and without a
@@ -297,7 +303,7 @@ def test_cuda_source_under_emulation(tmp_path):
     loads, 48 the 16-byte copies; 144 pixels (two M tiles) and C_out = 136
     (two N tiles) reach the edges of the tiles.  (The emulation runs a
     thread per CUDA thread, so the grids stay at 1024 threads.)"""
-    so = _emulated_library(tmp_path)
+    so = emulated
     rng = np.random.default_rng(6)
     cases = [("3x3", torch.bfloat16, 8, 16, (2, 8, 9)), ("up3x3", torch.bfloat16, 48, 24, (2, 5, 7)),
              ("1x1", torch.float32, 24, 136, (1, 4, 5)), ("up1x1", torch.float32, 16, 8, (2, 3, 5))]
@@ -328,11 +334,11 @@ def test_cuda_source_under_emulation(tmp_path):
         assert torch.equal(y, want), kind
 
 
-def test_cuda_source_refuses_what_it_cannot_run(tmp_path):
+def test_cuda_source_refuses_what_it_cannot_run(emulated):
     """The C entry points refuse before any launch: an odd C_out, more taps
     than the table holds, four phases without up, and a dynamic
     quantization without its partials."""
-    so = _emulated_library(tmp_path)
+    so = emulated
     xq = torch.zeros((1, 2, 2, 8), dtype=torch.int8)
     wq = torch.zeros((9, 8, 8), dtype=torch.int8)
     y, sw = torch.zeros((1, 2, 2, 8), dtype=torch.int32), torch.ones(8)

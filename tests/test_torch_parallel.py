@@ -1,11 +1,13 @@
 """The port's device mesh (``buddy_tpu_torch/parallel``) against the JAX
-package's on the CPU: the rank layout and the refusals of ``make_mesh``
-against the JAX ``make_mesh`` on the 8 virtual devices, each rank's block of
-a batch against the JAX ``NamedSharding``'s shards, the port's train step
-at dp=2 and at dp=1 x sp=2 in a world of two gloo processes against the JAX
-Trainer's step on those meshes (JAX's draws replayed), the ranks' batches
-under the real loader, and the sharded tester in a world of two against one
-process.  Each world is spawned once
+package's on the CPU: the rank layout (with and without a tp axis) and the
+refusals of ``make_mesh`` against the JAX ``make_mesh`` on the 8 virtual
+devices, each rank's block of a batch against the JAX ``NamedSharding``'s
+shards, the tensor-parallel rule against the JAX ``param_shardings`` and its
+blocks gathered back into the JAX tree, the port's train step at dp=2, at
+dp=1 x sp=2 and at dp=1 x tp=2 (with and without remat) in a world of two
+gloo processes against the JAX Trainer's step on those meshes (JAX's draws
+replayed), the ranks' batches under the real loader, and the sharded tester
+in a world of two against one process.  Each world is spawned once
 (``tests/torch_parallel_worker.py``) and meets through a file store under
 the test's temporary directory.  Test size: TINY_NET, batch 2 x 4096 for
 training, 2 utterances of 16384 samples for the tester.
@@ -68,23 +70,43 @@ def test_make_mesh_layout_against_jax(monkeypatch, dp, sp):
         assert m.groups == {name: None for name in m.axis_names} and m.group is None
 
 
+@pytest.mark.parametrize("dp,tp,sp", [(2, 2, 1), (1, 2, 2), (2, 2, 2), (4, 2, 1)])
+def test_make_mesh_tp_layout_against_jax(monkeypatch, dp, tp, sp):
+    """With a tp axis: the axis names, shape and grid of ranks (dp-major,
+    then tp, then sp) equal the JAX mesh's device ids over 8 devices; each
+    rank's coordinates and its tp line (the ranks of its row along "tp") are
+    those of its device, and ``Mesh.tp`` names its place on that line."""
+    from buddy_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    jm = jax_make_mesh(dp, tp, sp)
+    ids = _ids(jm)
+    axis = jm.axis_names.index("tp")
+    for rank in range(8):
+        m = _mesh_at(monkeypatch, rank, dp, tp, sp)
+        assert m.axis_names == jm.axis_names and m.shape == dict(jm.shape)
+        np.testing.assert_array_equal(m.devices, ids)
+        where = np.argwhere(ids == rank)
+        assert m.in_mesh == bool(len(where))
+        if not m.in_mesh:
+            assert m.tp is None
+            continue
+        assert tuple(m.coords.values()) == tuple(where[0])
+        line = np.moveaxis(ids, axis, -1)[tuple(np.delete(where[0], axis))]
+        assert m.line("tp") == list(line) and m.line("tp")[m.coords["tp"]] == rank
+        assert (m.tp.rank, m.tp.size, m.tp.group) == (m.coords["tp"], tp, None)
+
+
 def test_make_mesh_refusals_against_jax(monkeypatch):
-    """Too many ranks, an sp axis that leaves none for dp, and tp > 1:
-    the JAX make_mesh asserts (or partitions the convolutions over tp); the
-    port raises ValueError, ValueError and NotImplementedError naming the
-    ROADMAP item."""
+    """Too many ranks and an sp or tp axis that leaves none for dp: the JAX
+    make_mesh asserts, the port raises ValueError."""
     from buddy_tpu.parallel.mesh import make_mesh as jax_make_mesh
     # one process and no process group: a one-rank mesh
     m = pmesh.make_mesh()
     assert m.shape == {"dp": 1} and m.coords == {"dp": 0} and m.group is None
-    for dp, sp in ((8, 2), (16, 1), (-1, 16)):
+    for dp, tp, sp in ((8, 1, 2), (16, 1, 1), (-1, 1, 16), (4, 4, 1), (-1, 16, 1), (2, 2, 4)):
         with pytest.raises(AssertionError):
-            jax_make_mesh(dp, 1, sp)
+            jax_make_mesh(dp, tp, sp)
         with pytest.raises(ValueError, match="ranks"):
-            _mesh_at(monkeypatch, 0, dp, 1, sp)
-    assert jax_make_mesh(4, 2, 1).shape["tp"] == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*tp"):
-        _mesh_at(monkeypatch, 0, 4, 2, 1)
+            _mesh_at(monkeypatch, 0, dp, tp, sp)
     assert m.shape == {"dp": 1} and m.coords == {"dp": 0} and m.group is None
 
 
@@ -112,6 +134,60 @@ def test_shard_slices_against_jax_named_sharding(monkeypatch, dp, sp):
                 with pytest.raises(ValueError, match="outside"):
                     fn(m, x)
     assert tuple(NamedSharding(jm, P("dp")).spec) == pmesh.batch_sharding(m).spec
+
+
+@pytest.fixture(scope="module")
+def tiny_tree():
+    return jax_tiny_bundle(N, seed=5)[1]
+
+
+@pytest.mark.parametrize("dp,tp", [(4, 2), (2, 4)])
+def test_param_shardings_against_jax(monkeypatch, tiny_tree, dp, tp):
+    """The port's rule on TINY_NET's whole state marks exactly the leaves
+    the JAX ``param_shardings`` shards on the same mesh: the conv kernels
+    whose output channels divide (at tp=4 the 2-channel output convs stay
+    replicated), along the output axis (the JAX HWIO kernel's last, the
+    port's OIHW weight's first)."""
+    from buddy_tpu.parallel.mesh import make_mesh as jax_make_mesh, param_shardings as jax_rule
+    from buddy_tpu_torch.models.convert import from_jax_params, to_jax_params
+    from buddy_tpu_torch.training.checkpoint import tree_leaves
+    state = from_jax_params(tiny_tree)
+    m = _mesh_at(monkeypatch, 0, dp, tp, 1)
+    port = pmesh.param_shardings(m, state)
+    assert {sh.spec for sh in port.values()} == {(), ("tp",)}
+    marks = to_jax_params({k: np.full(v.shape, float(bool(port[k].spec)), np.float32)
+                           for k, v in state.items()})
+    specs = jax.tree.leaves(jax_rule(jax_make_mesh(dp, tp, 1), tiny_tree),
+                            is_leaf=lambda x: isinstance(x, NamedSharding))
+    marked = [bool(a.all()) for a in tree_leaves(marks)]
+    assert len(specs) == len(marked) and any(marked) and not all(marked)
+    for spec, sharded, leaf in zip(specs, marked, tree_leaves(tiny_tree)):
+        want = (None, None, None, "tp") if sharded else ()
+        assert tuple(spec.spec) == want, (leaf.shape, spec.spec)
+    kernels = [sh for sh, leaf in zip(marked, tree_leaves(tiny_tree)) if np.ndim(leaf) == 4]
+    assert all(kernels) == (tp == 2)
+
+
+@pytest.mark.parametrize("tp", [2, 4])
+def test_blocks_gather_back_into_the_jax_tree(monkeypatch, tiny_tree, tp):
+    """Each rank's blocks of a whole JAX tree (``from_jax_params(tree,
+    mesh)``) packed as ``gather_params`` sends them and unpacked as its
+    first rank assembles them give the JAX tree back bit for bit, in the JAX
+    layout; each rank holds 1/tp of every sharded kernel."""
+    from buddy_tpu_torch.models.convert import from_jax_params, to_jax_params
+    from buddy_tpu_torch.training.checkpoint import tree_leaves
+    whole = from_jax_params(tiny_tree)
+    blocks = [from_jax_params(tiny_tree, _mesh_at(monkeypatch, r, 1, tp, 1)) for r in range(tp)]
+    shardings = pmesh.param_shardings(_mesh_at(monkeypatch, 0, 1, tp, 1), whole)
+    for k, sh in shardings.items():
+        if sh.spec:
+            assert blocks[1][k].shape[0] * tp == whole[k].shape[0]
+    parts = [pmesh.pack_blocks(shardings, b) for b in blocks]
+    got = to_jax_params(pmesh.unpack_blocks(shardings, blocks[0], parts))
+    want = tree_leaves(tiny_tree)
+    assert len(tree_leaves(got["params"])) == len(want)
+    for a, b in zip(tree_leaves(got["params"]), want):
+        assert a.shape == b.shape and np.array_equal(a, b)
 
 
 def test_init_distributed(monkeypatch):
@@ -202,7 +278,10 @@ def _leaves(res, case, what):
     return [res[k] for k in keys]
 
 
-TRAIN_CASES = {"dp2": ["exp.mesh.dp=2"], "sp2": ["exp.mesh.dp=1", "exp.mesh.sp=2"]}
+TRAIN_CASES = {"dp2": ["exp.mesh.dp=2"], "sp2": ["exp.mesh.dp=1", "exp.mesh.sp=2"],
+               "tp2": ["exp.mesh.dp=1", "exp.mesh.tp=2"]}
+# train steps only (no loader case): tp=2 with each ResBlock recomputed
+REMAT_CASES = {"tp2_remat": ["exp.mesh.dp=1", "exp.mesh.tp=2", "network.remat=true"]}
 LOADER_STEPS = 3
 # of the peak: the raw samples of a batch of one a rank against a batch of
 # two, the CPU's float32 convolutions rounding each shape its own way
@@ -231,7 +310,7 @@ def train_world(tmp_path_factory):
     batch = np.stack([clean_wav(0)[1000:1000 + N], clean_wav(1)[5000:5000 + N]])
     inputs = {"batch": batch, **_flat(tree, "tree/")}
     jts = {}
-    for name, extra in TRAIN_CASES.items():
+    for name, extra in {**TRAIN_CASES, **REMAT_CASES}.items():
         jts[name] = jax_trainer(tree, batch, str(tmp_path / f"jax_{name}"), extra)
         _, draws = jax_train_draws(jts[name].rng, batch.shape)
         inputs[f"draws/{name}/sigma"], inputs[f"draws/{name}/prior"] = \
@@ -243,7 +322,7 @@ def train_world(tmp_path_factory):
             "tester.unconditional.audio_len=4096"]
     spec = {"jobs": [
         {"job": "train", "cases": [{"name": k, "overrides": TINY_NET + TRAIN_SMALL + v}
-                                   for k, v in TRAIN_CASES.items()]},
+                                   for k, v in {**TRAIN_CASES, **REMAT_CASES}.items()]},
         {"job": "loader", "steps": LOADER_STEPS,
          "cases": [{"name": f"loader_{k}", "overrides": TINY_NET + TRAIN_SMALL + data + v}
                    for k, v in TRAIN_CASES.items()]}]}
@@ -255,8 +334,11 @@ def train_world(tmp_path_factory):
         jax_out[name] = (jax.device_get(jt._metrics_acc),
                          [np.asarray(v) for v in jax.tree.leaves(jax.device_get(jt.opt_state))],
                          tree_leaves(jax.device_get(jt.params)),
-                         tree_leaves(jax.device_get(jt.ema_params)))
+                         tree_leaves(jax.device_get(jt.ema_params)),
+                         any(np.ndim(v) == 4 and not v.sharding.is_fully_replicated
+                             for v in jax.tree.leaves(jt.params)))
     assert jts["dp2"].mesh.shape == {"dp": 2} and jts["sp2"].mesh.shape == {"dp": 1, "sp": 2}
+    assert all(jts[k].mesh.shape == {"dp": 1, "tp": 2} for k in ("tp2", "tp2_remat"))
     return jax_out, _finish_world(root, procs)
 
 
@@ -271,8 +353,7 @@ def test_train_steps_dp2_and_sp2_against_jax(train_world):
     reusing it; the first rank alone writes the checkpoint, which every
     rank resumes."""
     jax_out, ranks = train_world
-    for name in TRAIN_CASES:
-        jm, j_opt, j_params, j_ema = jax_out[name]
+    for name in ("dp2", "sp2"):
         r0, r1 = ranks
         assert list(r0[f"{name}/mesh"]) == ([2, 1] if name == "dp2" else [1, 2])
         assert sorted(tuple(r[f"{name}/coords"]) for r in ranks) == \
@@ -284,23 +365,70 @@ def test_train_steps_dp2_and_sp2_against_jax(train_world):
         assert [str(f) for f in r0[f"{name}/files"]] == ["VCTK_16k_4s_time-0.ckpt"]
         assert len(r1[f"{name}/files"]) == 0
         assert bool(r0[f"{name}/resumed"]) and bool(r1[f"{name}/resumed"])
+        _against_jax(jax_out[name], r0, name)
 
-        tm = {k.split("/")[-1]: r0[k] for k in r0 if k.startswith(f"{name}/metrics/")}
-        np.testing.assert_allclose(tm["loss"], jm["loss"], rtol=1e-5)
-        np.testing.assert_allclose(tm["grad_norm"], jm["grad_norm"], rtol=1e-5)
-        np.testing.assert_array_equal(tm["bin_count"], jm["bin_count"])
-        np.testing.assert_allclose(tm["bin_sum"], jm["bin_sum"], rtol=1e-5, atol=1e-9)
-        t_opt = _leaves(r0, name, "opt")
-        n = (len(j_opt) - 1) // 2
-        assert len(t_opt) == len(j_opt) and int(t_opt[0]) == int(j_opt[0]) == 1
-        g_jax = [m / np.float32(0.1) for m in j_opt[1:1 + n]]
-        g_tol = gradient_tolerances(g_jax)
-        for a, b, tol in zip(_leaves(r0, name, "grads"), g_jax, g_tol):
-            np.testing.assert_allclose(a, b, rtol=0, atol=tol)
-        for a, b, tol in zip(t_opt[1:1 + n], j_opt[1:1 + n], g_tol):
-            np.testing.assert_allclose(a, b, rtol=0, atol=0.1 * tol)
-        assert_after_adam(_leaves(r0, name, "params"), j_params, g_jax, g_tol)
-        assert_after_adam(_leaves(r0, name, "ema"), j_ema, g_jax, g_tol)
+
+def _against_jax(jax_out, r0, name):
+    """The first rank's metrics, gradients, moments, parameters and EMA
+    after one step against the JAX Trainer's."""
+    jm, j_opt, j_params, j_ema, _ = jax_out
+    tm = {k.split("/")[-1]: r0[k] for k in r0 if k.startswith(f"{name}/metrics/")}
+    np.testing.assert_allclose(tm["loss"], jm["loss"], rtol=1e-5)
+    np.testing.assert_allclose(tm["grad_norm"], jm["grad_norm"], rtol=1e-5)
+    np.testing.assert_array_equal(tm["bin_count"], jm["bin_count"])
+    np.testing.assert_allclose(tm["bin_sum"], jm["bin_sum"], rtol=1e-5, atol=1e-9)
+    t_opt = _leaves(r0, name, "opt")
+    n = (len(j_opt) - 1) // 2
+    assert len(t_opt) == len(j_opt) and int(t_opt[0]) == int(j_opt[0]) == 1
+    g_jax = [m / np.float32(0.1) for m in j_opt[1:1 + n]]
+    g_tol = gradient_tolerances(g_jax)
+    for a, b, tol in zip(_leaves(r0, name, "grads"), g_jax, g_tol):
+        np.testing.assert_allclose(a, b, rtol=0, atol=tol)
+    for a, b, tol in zip(t_opt[1:1 + n], j_opt[1:1 + n], g_tol):
+        np.testing.assert_allclose(a, b, rtol=0, atol=0.1 * tol)
+    assert_after_adam(_leaves(r0, name, "params"), j_params, g_jax, g_tol)
+    assert_after_adam(_leaves(r0, name, "ema"), j_ema, g_jax, g_tol)
+
+
+@pytest.mark.parametrize("case", ["tp2", "tp2_remat"])
+def test_train_step_tp2_against_jax(train_world, case):
+    """One train step at exp.mesh.dp=1 x tp=2 on two gloo ranks (with
+    ``remat``: each ResBlock's recomputation issuing its all-gathers again),
+    JAX's draws replayed, against the JAX Trainer's step on the (1, 2) mesh,
+    whose conv kernels GSPMD shards: the loss, the norm, the bin sums, and
+    the gradients, moments, parameters and EMA gathered to the first rank,
+    at dp2 and sp2's tolerances.  Each rank holds its half of every conv
+    kernel and of its moments and EMA (the gathered tree's rows of that
+    rank) and the same bits of every replicated leaf; the first rank alone
+    writes the checkpoint, which every rank resumes at tp=2 and at tp=1
+    (the whole tree, bit for bit)."""
+    from buddy_tpu_torch.models.convert import from_jax_params
+    from buddy_tpu_torch.training.checkpoint import tree_like
+    jax_out, ranks = train_world
+    assert jax_out[case][4], "the JAX Trainer did not shard a conv kernel over tp"
+    _against_jax(jax_out[case], ranks[0], case)
+    _, tree = jax_tiny_bundle(N, seed=3)
+    whole = {what: from_jax_params(tree_like(tree, _leaves(ranks[0], case, what)))
+             for what in ("grads", "params", "ema")}
+    opt = _leaves(ranks[0], case, "opt")
+    n = (len(opt) - 1) // 2
+    whole["mu"] = from_jax_params(tree_like(tree, opt[1:1 + n]))
+    whole["nu"] = from_jax_params(tree_like(tree, opt[1 + n:]))
+    halves = 0
+    for r, rk in enumerate(ranks):
+        assert list(rk[f"{case}/tp"]) == [2, r] and list(rk[f"{case}/groups"]) == [True, True]
+        assert list(rk[f"{case}/mesh"]) == [1, 1] and list(rk[f"{case}/coords"]) == [0, 0]
+        for what, state in whole.items():
+            for k, v in state.items():
+                mine = rk[f"{case}/blocks/{what}/{k}"]
+                if mine.shape != v.shape:           # this rank's rows of a sharded kernel
+                    assert mine.ndim == 4 and 2 * mine.shape[0] == v.shape[0], k
+                    v, halves = v[r * mine.shape[0]:(r + 1) * mine.shape[0]], halves + 1
+                np.testing.assert_array_equal(mine, v.numpy(), err_msg=f"{case} {what} {k}")
+        assert bool(rk[f"{case}/resumed"]) and bool(rk[f"{case}/resumed_tp1"])
+    assert halves == 2 * 5 * sum(v.ndim == 4 for v in whole["params"].values())
+    assert [str(f) for f in ranks[0][f"{case}/files"]] == ["VCTK_16k_4s_time-0.ckpt"]
+    assert len(ranks[1][f"{case}/files"]) == 0
 
 
 @pytest.mark.parametrize("case", list(TRAIN_CASES))
@@ -326,6 +454,7 @@ def test_ranks_train_on_the_first_ranks_global_batch(train_world, case):
         np.testing.assert_array_equal(r1[f"{key}/samples"], r0[f"{key}/samples"])
     assert r0[f"{key}/samples"].shape == (2, N) and np.isfinite(r0[f"{key}/samples"]).all()
     assert rel_err(r0["loader_dp2/samples"], r0["loader_sp2/samples"]) < SAMPLES_TOL
+    assert rel_err(r0[f"{key}/samples"], r0["loader_sp2/samples"]) < SAMPLES_TOL
     for i in range(LOADER_STEPS):
         glob = r0[f"loader_{case}/read{i}"]
         assert glob.shape == (2, N) and np.abs(glob).max() > 0

@@ -284,10 +284,10 @@ def test_trainer_needs_the_card_unless_asked_for_the_cpu(monkeypatch, weights):
     with pytest.raises(RuntimeError, match="CUDA"):
         instantiate(args["exp"]["trainer"], args, FixedLoader(batch), torch_tiny_bundle(tree),
                     instantiate(args["diff_params"]), None)
-    # one process: a mesh of two ranks is refused (as the JAX package's
-    # make_mesh refuses two devices of one), and tp is not ported
+    # one process: a mesh of two ranks is refused, along dp or along tp (as
+    # the JAX package's make_mesh refuses two devices of one)
     for over, error, match in (("exp.mesh.dp=2", ValueError, "ranks"),
-                               ("exp.mesh.tp=2", NotImplementedError, "tp")):
+                               ("exp.mesh.tp=2", ValueError, "ranks")):
         bad = torch_compose(TINY_NET + [over])
         with pytest.raises(error, match=match):
             instantiate(bad["exp"]["trainer"], bad, FixedLoader(batch), torch_tiny_bundle(tree),

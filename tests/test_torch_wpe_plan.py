@@ -243,8 +243,14 @@ def _emulated_solve(so, R, P, sms):
     return G, plan
 
 
-def test_cuda_source_under_emulation(tmp_path):
-    so = _emulated_library(tmp_path)
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """The emulated library, compiled once for the module's tests."""
+    return _emulated_library(tmp_path_factory.mktemp("emu"))
+
+
+def test_cuda_source_under_emulation(emulated):
+    so = emulated
     for n, batch, sms in ((1, 3, 1), (2, 3, 1), (10, 40, 1), (33, 4, 1), (50, 7, 2), (64, 3, 1),
                           (65, 3, 2), (120, 2, 1)):
         R, P = _systems(n, batch)
@@ -257,10 +263,10 @@ def test_cuda_source_under_emulation(tmp_path):
             assert np.array_equal(G, _emulated_solve(so, R, P, sms)[0])
 
 
-def test_cuda_source_refuses_what_the_plan_refuses(tmp_path):
+def test_cuda_source_refuses_what_the_plan_refuses(emulated):
     """The C entry checks the plan: a route that does not hold n, or shared
     memory other than the plan's, is refused before any launch."""
-    so = _emulated_library(tmp_path)
+    so = emulated
     R, P = _systems(50, 2)
     G = np.zeros_like(P)
     plan = K7.solve_route(50, 2)

@@ -11,7 +11,10 @@ and writes ``<dir>/rank<rank>.npz``:
   replayed; one ``train_step``, ``save_checkpoint`` into a directory of the
   rank's own, then a second Trainer on every rank resumed from the first
   rank's checkpoint; the metrics, gradients, parameters, EMA and Adam's
-  leaves in the JAX tree's order;
+  leaves in the JAX tree's order.  Under tp the leaves are gathered to the
+  first rank and sent to the others, and each rank also keeps its own
+  blocks (``blocks/``); a Trainer at tp=1 resumes the first rank's
+  checkpoint too;
 * ``loader``: for each case, the training CLI's order: a ``VCTKTrain`` and
   its threaded loader, then the test set (whose constructor reseeds numpy's
   global generator while the loader's thread draws crops from it), the
@@ -24,6 +27,7 @@ and writes ``<dir>/rank<rank>.npz``:
 It imports no JAX: the test hands it numpy arrays.
 """
 
+import datetime
 import json
 import os
 import sys
@@ -31,6 +35,9 @@ import sys
 import numpy as np
 
 THREADS = 2             # two ranks beside the test run's other workers
+# a collective that a rank never joins (ranks issuing them in different
+# orders) raises after this, inside the test's own limit on each rank
+COLLECTIVE_TIMEOUT = datetime.timedelta(seconds=240)
 
 
 def _tree(flat: dict, prefix: str) -> dict:
@@ -106,9 +113,19 @@ def train(spec, inputs, rank, out_dir) -> dict:
         tr.save_checkpoint()
         grads = {k: (p.grad if p.grad is not None else p.detach() * 0)
                  for k, p in tr.params.items()}
-        leaves = {"grads": tree_leaves(to_jax_params(grads)),
-                  "params": tree_leaves(to_jax_params(tr.params)),
-                  "ema": tree_leaves(to_jax_params(tr.ema)), "opt": tr.opt_leaves()}
+        states = {"grads": grads, "params": tr.params, "ema": tr.ema}
+        whole = {what: tr.whole(st) for what, st in states.items()}
+        leaves = {what: None if t is None else tree_leaves(t) for what, t in whole.items()}
+        leaves["opt"] = tr.opt_leaves()
+        tp = tr.mesh.tp
+        if tp is not None:          # the first rank's whole tree on every rank
+            sent = [leaves]
+            dist.broadcast_object_list(sent, src=0)
+            leaves = sent[0]
+            for what, st in {**states, "mu": tr.mu, "nu": tr.nu}.items():
+                for k, v in st.items():
+                    res[f"{name}/blocks/{what}/{k}"] = v.detach().numpy()
+            res[f"{name}/tp"] = np.asarray([tp.size, tp.rank])
         for what, ls in leaves.items():
             for i, leaf in enumerate(ls):
                 res[f"{name}/{what}/{i:04d}"] = np.asarray(leaf)
@@ -119,7 +136,7 @@ def train(spec, inputs, rank, out_dir) -> dict:
         res[f"{name}/coords"] = np.asarray([tr.mesh.coords.get("dp", 0),
                                             tr.mesh.coords.get("sp", 0)])
         res[f"{name}/files"] = np.asarray(sorted(os.listdir(model_dir)), dtype=str)
-        axis = "sp" if "sp" in tr.mesh.axis_names else "dp"
+        axis = next(a for a in ("sp", "tp", "dp") if a in tr.mesh.axis_names)
         res[f"{name}/groups"] = np.asarray([tr.mesh.group is dist.group.WORLD,
                                             tr.mesh.groups[axis] is tr.mesh.group])
         # every rank resumes from the first rank's checkpoint
@@ -129,6 +146,16 @@ def train(spec, inputs, rank, out_dir) -> dict:
             again.it == tr.it and again.count == tr.count
             and all(np.array_equal(a.detach().numpy(), tr.params[k].detach().numpy())
                     for k, a in again.params.items()))
+        if tp is not None:          # the tp=2 checkpoint at tp=1: the whole tree
+            one = build(["exp.resume=True", f"exp.resume_checkpoint={first}", "exp.mesh.tp=1"],
+                        None)
+            got = (tree_leaves(to_jax_params(one.params)) + tree_leaves(to_jax_params(one.ema))
+                   + one.opt_leaves())
+            want = leaves["params"] + leaves["ema"] + leaves["opt"]
+            res[f"{name}/resumed_tp1"] = np.asarray(
+                one.it == tr.it and one.count == tr.count and one.mesh.tp is None
+                and len(got) == len(want)
+                and all(np.array_equal(np.asarray(a), np.asarray(b)) for a, b in zip(got, want)))
     return res
 
 
@@ -206,7 +233,7 @@ def main(argv) -> int:
     with np.load(os.path.join(out_dir, "inputs.npz")) as data:
         inputs = {k: data[k] for k in data.files}
     dist.init_process_group("gloo", init_method=f"file://{os.path.join(out_dir, 'store')}",
-                            rank=rank, world_size=world)
+                            rank=rank, world_size=world, timeout=COLLECTIVE_TIMEOUT)
     try:
         res = {}
         for job in spec["jobs"]:
