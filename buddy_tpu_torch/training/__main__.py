@@ -35,7 +35,9 @@ def _main(args, device=None):
     args["exp"]["model_dir"] = args["model_dir"]
 
     train_set = instantiate(args["dset"]["train"])
-    train_loader = make_train_loader(train_set, batch_size=int(args["exp"]["batch_size"]))
+    train_loader = make_train_loader(train_set, batch_size=int(args["exp"]["batch_size"]),
+                                     num_workers=int(args["exp"]["num_workers"]),
+                                     seed=int(args["exp"]["seed"]))
     try:
         test_set = instantiate(args["dset"]["test"])
     except (OSError, AssertionError) as e:      # a missing or short test directory
@@ -59,6 +61,8 @@ def _main(args, device=None):
     print(f"Dataset:    {args['dset']['train']['_target_']}")
     print(f"Diffusion parameterization:  {args['diff_params']['_target_']}")
     print(f"Batch size:              {args['exp']['batch_size']}")
+    print(f"Loader:                  {type(train_loader).__name__} "
+          f"({args['exp']['num_workers']} workers, seed {args['exp']['seed']})")
     print(f"Device:                  {device}")
     print(f"Ranks:                   {describe()}")
     print()

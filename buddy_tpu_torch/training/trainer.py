@@ -239,10 +239,20 @@ class Trainer:
         return one_hot.T @ per, one_hot.T @ (per * per), one_hot.sum(0)
 
     def get_batch(self) -> torch.Tensor:
-        """This rank's rows of the mesh's first rank's global batch."""
+        """This rank's rows of the mesh's first rank's global batch.
+
+        The loader hands over a host array, or a tensor already on the
+        device (``data.loader.DeviceLoader`` without a sharding), which is
+        used as it is.  Every rank's loader reads the same files from the
+        same seed, but with more than one worker thread the native loader's
+        order is not deterministic (its workers share one seed counter and
+        race for slots), so the ranks' batches disagree: the first rank's is
+        broadcast over the mesh before each rank keeps its rows."""
         batch = self.dset.next_batch() if hasattr(self.dset, "next_batch") \
             else next(self.dset)
-        x = torch.from_numpy(np.asarray(batch, np.float32)).to(self.device)
+        x = batch if isinstance(batch, torch.Tensor) else \
+            torch.from_numpy(np.asarray(batch, np.float32))
+        x = x.to(self.device, torch.float32)
         pmesh.replicate(self.mesh, [x])
         return pmesh.shard_batch(self.mesh, x)
 

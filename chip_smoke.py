@@ -8,7 +8,9 @@ Phases, each printing one line:
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
 2. building the CUDA kernels (K1, K2, K3, K4's loss pair, K5, K6, K7, K10) from
    ``buddy_tpu_torch/csrc`` with nvcc, one process per source, all at once
-   (K4's Triton compression compiles at its first launch, in phase 3);
+   (K4's Triton compression compiles at its first launch, in phase 3), and
+   beside them the data pipeline's host library (``csrc/wavio.cpp``,
+   ``csrc/loader.cpp``) with the host's C++ compiler, its seconds logged;
 3. each kernel at the main path's shapes and dtypes (K1 at the U-Net's four
    GroupNorm shapes, through its autograd wrapper and its C calls; K2 at its four geometries:
    operator, model, WPE and the operator's short `cons` spectra, with its
@@ -57,7 +59,8 @@ Phases, each printing one line:
    JAX package wrote;
 6. training and checkpointing: the 8 in-repo clean utterances written under
    chiprun_out/train/<speaker>/ and read through ``VCTKTrain`` and
-   ``make_train_loader``; K1 in float32 at every GroupNorm shape of the
+   ``make_train_loader`` with ``exp.num_workers`` and ``exp.seed`` (the
+   native loader, asserted); K1 in float32 at every GroupNorm shape of the
    train step (batch 16), forward and backward with d weight and d bias,
    against its plain version, timed beside it and ``F.group_norm``; K2 at
    the model geometry on a (16, 65536) float32 batch, the analysis, the
@@ -70,9 +73,15 @@ Phases, each printing one line:
    and default cuDNN), peak memory, one profiled step (device time by part,
    launches, idle share from the union of the device's intervals; the
    table to chiprun_out/); ``heavy_logging`` from
-   the EMA leaving the trainer's weights as they were; the training CLI
-   ``python -m buddy_tpu_torch.training`` at nf=8, then the testing CLI on
-   the checkpoint it wrote;
+   the EMA leaving the trainer's weights as they were; the input pipeline
+   at the shipped exp (batch 16 x 65536, ``exp.num_workers`` workers): the
+   native loader's batches a second beside the threaded loader's,
+   ``Trainer.get_batch``'s host ms a step inside 3 train steps on the native
+   loader and on a ``DeviceLoader`` over it, beside those steps' ms, the
+   device batches bit for bit with the host batches, every row a cyclic
+   window of a training file; the training CLI ``python -m buddy_tpu_torch.training`` at
+   nf=8 (on the native loader, by its ``Loader:`` line), then the testing
+   CLI on the checkpoint it wrote;
 7. the blind program and one train step at a small size on the card
    (kernels) and on the CPU (plain versions) with the same weights and
    noise: the outputs must agree; also the blind program with
@@ -125,7 +134,8 @@ Phases, each printing one line:
 10. the device mesh over torch.distributed (``buddy_tpu_torch/parallel``):
    (a) the training CLI under ``python -m torch.distributed.run --standalone
    --nproc_per_node=1`` (NCCL, world 1, ``exp.mesh.dp=-1``) at nf=8 for 2
-   steps, then the testing CLI under it on its checkpoint; (b) two ranks on
+   steps on the native loader, then the testing CLI under it on its
+   checkpoint; (b) two ranks on
    the one card over gloo (CUDA tensors), started by this script
    (``chip_smoke.py --mesh-rank <r>``), training the full-width network in
    float32 at a global batch of 4 x 65536 with deterministic cuDNN: 2 steps
@@ -162,6 +172,7 @@ at the training shapes under its rows' ``training_shape``), which is
 exits non-zero without that line.  It imports nothing of JAX.
 """
 
+import concurrent.futures
 import contextlib
 import json
 import os
@@ -1747,6 +1758,7 @@ TRAIN_BATCH = 16                # the shipped exp: batch 16 of 65536 samples, fl
 TRAIN_GRAD_ACCUM = 1            # exp.grad_accum of the full-width run
 TRAIN_STEPS = 5                 # the uninterrupted run: it = 0 .. 4, saves at it = 2 and 4
 TINY_TRAIN = ["network.nf=8", "network.ch_mult=[1,2,2,2]", "network.num_res_blocks=1"]
+NATIVE_CLI = "Loader:                  NativeBatchLoader"   # the training CLI's line
 
 
 class RecordingLoader:
@@ -1800,7 +1812,8 @@ def build_trainer(dev, overrides, loader=None, noise=None):
     os.makedirs(args["model_dir"], exist_ok=True)
     if loader is None:
         loader = RecordingLoader(make_train_loader(
-            instantiate(args["dset"]["train"]), batch_size=int(args["exp"]["batch_size"])))
+            instantiate(args["dset"]["train"]), batch_size=int(args["exp"]["batch_size"]),
+            num_workers=int(args["exp"]["num_workers"]), seed=int(args["exp"]["seed"])))
     net = NetworkBundle(instantiate(args["network"], device=dev, seed=int(args["exp"]["seed"])))
     diff = instantiate(args["diff_params"])
     args["tester"]["sampling_params"]["same_as_training"] = True
@@ -2101,6 +2114,10 @@ def training_path(dev, wrappers) -> dict:
         f"model_dir={model_dir}"]
     trainer, loader = build_trainer(dev, overrides)
     a = trainer.args
+    from buddy_tpu_torch.data.loader import NativeBatchLoader
+    if not isinstance(loader.inner, NativeBatchLoader):
+        raise AssertionError(f"phase 6 trains on {type(loader.inner).__name__}, not the native "
+                             f"loader")
     calls = gn_calls_of_step(trainer.module, TRAIN_BATCH // TRAIN_GRAD_ACCUM, 65536, dev)
     log(f"training: NCSN++ nf={a['network']['nf']} ch_mult={list(a['network']['ch_mult'])} "
         f"({trainer.total_params / 1e6:.2f} M params, compute_dtype "
@@ -2211,6 +2228,7 @@ def training_path(dev, wrappers) -> dict:
         raise AssertionError("heavy_logging ran K1's backward")
     log(f"heavy_logging (unconditional, T=2, 2 samples x 65536 from the EMA): {samples}, "
         f"finite; the trainer's parameters unchanged, no K1 backward")
+    input_pipeline = loader_step(dev, trainer, data, ms_default)
     step_counts = per_step[0]
     for e in entries.values():
         e["extra"]["training_ms_per_step"] = ms_default
@@ -2223,7 +2241,121 @@ def training_path(dev, wrappers) -> dict:
     for f in ckpts:             # 1 GB each: not for chiprun_out's way back
         os.remove(os.path.join(model_dir, f))
     return {"entries": entries, "k2": k2, "launches": launches, "per_step": step_counts,
-            "ms_per_step": ms_default, "peak_gib": peak}
+            "ms_per_step": ms_default, "peak_gib": peak, "input_pipeline": input_pipeline}
+
+
+LOADER_WINDOW_S = 1.0           # each loader's batches are counted over this long
+LOADER_STEPS = 3                # train steps with get_batch timed, each loader
+
+
+def batches_per_s(loader) -> float:
+    """Batches a second that ``loader.next_batch`` hands out over
+    ``LOADER_WINDOW_S`` after two batches of warm-up."""
+    for _ in range(2):
+        loader.next_batch()
+    n, t0 = 0, time.perf_counter()
+    while time.perf_counter() - t0 < LOADER_WINDOW_S:
+        loader.next_batch()
+        n += 1
+    return n / (time.perf_counter() - t0)
+
+
+def cyclic_window(row, files) -> bool:
+    """Whether ``row`` is a cyclic window of one of ``files`` (arrays)."""
+    import numpy as np
+    for x in files:
+        for s in np.flatnonzero(x == row[0]):
+            if np.array_equal(x[(s + np.arange(len(row))) % len(x)], row):
+                return True
+    return False
+
+
+def loader_step(dev, trainer, data: str, ms_step: float) -> dict:
+    """The input pipeline at the shipped exp (batch 16 x 65536, exp.num_workers
+    workers, exp.seed): the native loader's batches a second beside the
+    threaded loader's over the same ``VCTKTrain``; the host ms of
+    ``Trainer.get_batch`` a step inside ``LOADER_STEPS`` train steps on the
+    native loader and on a ``DeviceLoader`` over it, beside those steps' ms;
+    the device batches bit for bit with the host batches they came from;
+    every row a cyclic window of one of the training files."""
+    import glob
+    import torch
+    from buddy_tpu_torch.config import instantiate
+    from buddy_tpu_torch.data.audio_io import read_wav
+    from buddy_tpu_torch.data.loader import (DeviceLoader, PythonBatchLoader,
+                                             make_train_loader)
+    t0 = time.perf_counter()
+    a = trainer.args
+    batch, workers, seed = (int(a["exp"][k]) for k in ("batch_size", "num_workers", "seed"))
+    length = int(a["dset"]["train"]["segment_length"])
+    files = [read_wav(f)[0] for f in sorted(glob.glob(os.path.join(data, "*", "*.wav")))]
+
+    def native():
+        return make_train_loader(instantiate(a["dset"]["train"]), batch_size=batch,
+                                 num_workers=workers, seed=seed)
+
+    rates = {}
+    for name, build in (("native", native),
+                        ("threaded", lambda: PythonBatchLoader(instantiate(a["dset"]["train"]),
+                                                               batch))):
+        loader = build()
+        try:
+            rates[name] = batches_per_s(loader)
+        finally:
+            loader.close()
+
+    # get_batch timed where the trainer calls it, at the head of each step: from
+    # the second step on the host is ahead of the card, so a blocking upload
+    # waits for the previous step's kernels
+    host_ms, per_step, step_ms, rows_ok, equal = {}, {}, {}, True, True
+    saved, get_batch = trainer.dset, trainer.get_batch
+    try:
+        for name in ("native", "DeviceLoader"):
+            inner = RecordingLoader(native())
+            trainer.dset = inner if name == "native" else DeviceLoader(inner, dev)
+            times, got = [], []
+
+            def timed():
+                c0 = time.perf_counter()
+                got.append(get_batch())
+                times.append((time.perf_counter() - c0) * 1e3)
+                return got[-1]
+
+            trainer.get_batch = timed
+            try:
+                step_ms[name] = steps_ms(trainer, LOADER_STEPS)
+                host_ms[name] = sorted(times)[LOADER_STEPS // 2]
+                per_step[name] = times
+                for x, h in zip(got, inner.batches):
+                    equal = equal and torch.equal(x.cpu(), torch.from_numpy(h))
+                    rows_ok = rows_ok and all(cyclic_window(r, files) for r in h)
+            finally:
+                del trainer.get_batch
+                trainer.dset.close()
+    finally:
+        trainer.dset = saved
+    if not (equal and rows_ok):
+        raise AssertionError(f"input pipeline: device batches equal to the host's {equal}, "
+                             f"every row a window of a training file {rows_ok}")
+    out = {"batch": [batch, length], "workers": workers, "seed": seed,
+           "native_batches_per_s": rates["native"], "threaded_batches_per_s": rates["threaded"],
+           "get_batch_host_ms": host_ms["native"],
+           "get_batch_host_ms_device_loader": host_ms["DeviceLoader"],
+           "get_batch_host_ms_by_step": per_step,
+           "train_step_ms": ms_step, "train_step_ms_native": step_ms["native"],
+           "train_step_ms_device_loader": step_ms["DeviceLoader"],
+           "device_batch_bit_for_bit": equal,
+           "rows_are_windows": rows_ok, "seconds": time.perf_counter() - t0}
+    log(f"input pipeline (batch {batch} x {length}, {workers} workers, seed {seed}): native loader "
+        f"{rates['native']:.1f} batches/s, threaded loader {rates['threaded']:.1f}; "
+        f"Trainer.get_batch host ms a step (median of {LOADER_STEPS} train steps) "
+        f"{host_ms['native']:.3f} on the native loader, {host_ms['DeviceLoader']:.3f} on "
+        f"DeviceLoader, beside {step_ms['native']:.1f} / {step_ms['DeviceLoader']:.1f} ms a "
+        f"train step ({ms_step:.1f} on replayed batches); device batches bit for bit with the "
+        f"host batches: "
+        f"{equal}; rows cyclic windows of the training files: {rows_ok}; "
+        f"{out['seconds']:.1f} s: " + json.dumps(out))
+    return out
 
 
 def training_clis(dev) -> None:
@@ -2240,9 +2372,10 @@ def training_clis(dev) -> None:
            "tester.sampling_params.T=2", "tester.unconditional.num_samples=1",
            f"model_dir={model_dir}"]
     run = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=600)
-    if run.returncode != 0 or "it=2 loss=" not in run.stdout:
+    if run.returncode != 0 or "it=2 loss=" not in run.stdout or NATIVE_CLI not in run.stdout:
         raise AssertionError(f"training CLI exited with {run.returncode}:\n{run.stdout[-2000:]}\n"
                              f"{run.stderr[-4000:]}")
+    loader_line = [ln.strip() for ln in run.stdout.splitlines() if ln.startswith("Loader:")]
     ckpt = os.path.join(model_dir, "VCTK_16k_4s_time-2.ckpt")
     if not os.path.exists(ckpt) or not os.path.exists(os.path.join(model_dir, "sample_0_it2.wav")):
         raise AssertionError(f"training CLI wrote {sorted(os.listdir(model_dir))}")
@@ -2264,7 +2397,8 @@ def training_clis(dev) -> None:
     if len(rec) != 65536 or not np.isfinite(rec).all():
         raise AssertionError("testing CLI: reconstructed/utt0.wav is not 65536 finite samples")
     log(f"training CLI (python -m buddy_tpu_torch.training, nf=8, batch 4 x 65536, "
-        f"max_iters=2): exit 0, checkpoint at it=2 and an in-training sample; the testing CLI "
+        f"max_iters=2; {loader_line[0]}): exit 0, checkpoint at it=2 and an in-training "
+        f"sample; the testing CLI "
         f"(blind, 2 items) on that checkpoint: exit 0, finite WAVs; "
         f"{time.perf_counter() - t0:.1f} s")
 
@@ -3604,9 +3738,11 @@ def mesh_clis(dev) -> float:
            "logging.heavy_log_interval=2", "tester.sampling_params.T=2",
            "tester.unconditional.num_samples=1", f"model_dir={model_dir}"]
     run = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=MESH_TIMEOUT)
-    if run.returncode != 0 or "it=2 loss=" not in run.stdout or "nccl" not in run.stdout:
+    if run.returncode != 0 or "it=2 loss=" not in run.stdout or "nccl" not in run.stdout \
+            or NATIVE_CLI not in run.stdout:
         raise AssertionError(f"torchrun training CLI exited with {run.returncode}:\n"
                              f"{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
+    loader_line = [ln.strip() for ln in run.stdout.splitlines() if ln.startswith("Loader:")]
     ranks_line = [ln for ln in run.stdout.splitlines() if ln.startswith("Ranks:")]
     ckpt = os.path.join(model_dir, "VCTK_16k_4s_time-2.ckpt")
     if not os.path.exists(ckpt):
@@ -3630,7 +3766,8 @@ def mesh_clis(dev) -> float:
                              "samples")
     s = time.perf_counter() - t0
     log(f"(a) torchrun --standalone --nproc_per_node=1: the training CLI (nf=8, batch 4 x 65536, "
-        f"exp.mesh.dp=-1, max_iters=2; {ranks_line[0] if ranks_line else ''}): exit 0, "
+        f"exp.mesh.dp=-1, max_iters=2; {ranks_line[0] if ranks_line else ''}; "
+        f"{loader_line[0]}): exit 0, "
         f"checkpoint at it=2; the testing CLI under torchrun on it (blind, 2 items): exit 0, "
         f"finite WAVs; {s:.1f} s")
     return s
@@ -4018,13 +4155,20 @@ def main() -> int:
         f"{torch.__version__}, CUDA {torch.version.cuda}, python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    built = _build.build()
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        host = pool.submit(_build.build_host)       # g++ beside the nvcc processes
+        built = _build.build()
+        host_s = host.result()
     regs = []
     for name in _build.SOURCES:
         with open(_build.library_path(name)[:-3] + ".log") as f:
             regs += [ln.strip() for ln in f if "registers" in ln]
     log(f"build: nvcc sm_90a {sorted(built)} in {time.perf_counter() - t0:.1f} s "
         f"(parallel); ptxas: {' | '.join(regs)}")
+    log(f"build: the data pipeline's host library (csrc/wavio.cpp, csrc/loader.cpp; "
+        f"{' '.join(_build.HOST_FLAGS)}) "
+        + (f"in {host_s:.1f} s" if host_s is not None else "already built")
+        + f": {os.path.relpath(_build.host_library_path(), REPO)}")
 
     wrappers = {
         "groupnorm_silu_fwd": K1.group_norm_act, "groupnorm_silu_bwd": K1.group_norm_act_backward,

@@ -315,21 +315,34 @@ _IMPORT_RE = re.compile(
     r"|import_module\(\s*['\"](jax|jaxlib|flax|optax|buddy_tpu)\b", re.M)
 
 
-def _port_files():
+# the JAX package's native runtime (its sources and its build), which the port
+# must not load: it builds its own host library from buddy_tpu_torch/csrc/
+_RUNTIME_RE = re.compile(r"(?<![\w.])runtime/|[\"']runtime[\"']|libbuddy_runtime")
+
+
+def _port_files(suffixes=(".py",)):
     pkg = os.path.join(REPO, "buddy_tpu_torch")
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(pkg):
-        files += [os.path.join(root, f) for f in names if f.endswith(".py")]
+        if os.path.basename(root) != "_build":
+            files += [os.path.join(root, f) for f in names if f.endswith(suffixes)]
     return files
 
 
 def test_port_files_import_no_jax():
     """No file of buddy_tpu_torch/ and not chip_smoke.py imports JAX, flax,
-    optax or the JAX package."""
+    optax or the JAX package, or names the JAX package's native runtime
+    (``runtime/``, ``libbuddy_runtime``); neither do the port's native
+    sources."""
     offenders = []
     for path in _port_files():
         with open(path) as f:
-            if _IMPORT_RE.search(f.read()):
+            text = f.read()
+        if _IMPORT_RE.search(text) or _RUNTIME_RE.search(text):
+            offenders.append(os.path.relpath(path, REPO))
+    for path in _port_files((".cpp", ".cu", ".cuh")):
+        with open(path) as f:
+            if _RUNTIME_RE.search(f.read()):
                 offenders.append(os.path.relpath(path, REPO))
     assert not offenders, offenders
 

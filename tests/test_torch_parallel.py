@@ -434,9 +434,9 @@ def test_train_step_tp2_against_jax(train_world, case):
 @pytest.mark.parametrize("case", list(TRAIN_CASES))
 def test_ranks_train_on_the_first_ranks_global_batch(train_world, case):
     """The training CLI's order on both ranks (the real ``VCTKTrain`` and
-    loader, then a test set whose constructor reseeds numpy's global
-    generator while the loader's thread draws crops from it, the
-    in-training tester, the Trainer): whatever each rank's loader read,
+    native loader with exp.num_workers threads, whose order differs from
+    rank to rank, then a test set, the in-training tester, the Trainer):
+    whatever each rank's loader read,
     ``get_batch`` hands every rank its rows of the first rank's global
     batch, at dp=2 its half, at dp=1 x sp=2 the whole batch on both ranks.
     The tester samples on the trainer's mesh: ``heavy_logging``'s 2 samples

@@ -323,11 +323,13 @@ def test_vctk_train_segments_match_jax(train_dir):
 
 
 def test_loader_batches_match_jax(train_dir):
-    """make_train_loader's threaded batches equal the JAX PythonBatchLoader's
-    over the same dataset seed; the loader's thread stops on close."""
+    """The threaded loader's batches equal the JAX PythonBatchLoader's over
+    the same dataset seed; the loader's thread stops on close.  (For a
+    VCTKTrain ``make_train_loader`` builds the native loader, held to the
+    JAX package's in tests/test_torch_native_io.py.)"""
     from buddy_tpu.data.loader import PythonBatchLoader as JLoader
     from buddy_tpu.data.vctk import VCTKTrain as JTrain
-    from buddy_tpu_torch.data.loader import make_train_loader
+    from buddy_tpu_torch.data.loader import PythonBatchLoader
     from buddy_tpu_torch.data.vctk import VCTKTrain
     jl = JLoader(JTrain(**_train_kwargs(train_dir, seed=5)), batch_size=3, prefetch=1)
     want = [jl.next_batch() for _ in range(4)]
@@ -338,7 +340,7 @@ def test_loader_batches_match_jax(train_dir):
         except Exception:      # noqa: BLE001 -- queue.Empty: the thread is finishing its draw
             pass
         jl._thread.join(0.1)
-    tl = make_train_loader(VCTKTrain(**_train_kwargs(train_dir, seed=5)), batch_size=3)
+    tl = PythonBatchLoader(VCTKTrain(**_train_kwargs(train_dir, seed=5)), batch_size=3)
     got = [tl.next_batch() for _ in range(4)]
     tl.close()
     assert not tl._thread.is_alive()

@@ -172,7 +172,9 @@ def loader(spec, inputs, rank, out_dir) -> dict:
         args["exp"]["model_dir"] = args["model_dir"]
         os.makedirs(args["model_dir"])
         train_loader = make_train_loader(instantiate(args["dset"]["train"]),
-                                         batch_size=int(args["exp"]["batch_size"]))
+                                         batch_size=int(args["exp"]["batch_size"]),
+                                         num_workers=int(args["exp"]["num_workers"]),
+                                         seed=int(args["exp"]["seed"]))
         test_set = instantiate(args["dset"]["test"])
         net, diff = _bundle(case["overrides"], tree), instantiate(args["diff_params"])
         args["tester"]["sampling_params"]["same_as_training"] = True
