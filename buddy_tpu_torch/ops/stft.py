@@ -1,12 +1,14 @@
 """STFT / ISTFT with torch.stft / torch.istft semantics, and kernel K2.
 
 Semantics (``buddy_tpu/ops/stft.py``): center padding of n_fft//2 on both
-sides (``reflect`` for the model, ``constant`` for the operators), onesided,
-not normalized; the ISTFT overlap-adds, divides by the window-squared
-envelope guarded at 1e-11, trims the centre padding and crops or zero-pads
-to ``length``.  The window is given at full n_fft length (the operators
-right-pad a hann(512) to 1024); only its support (the nonzero prefix) is
-used.
+sides (``reflect`` for the model, ``constant`` for the operators; none with
+``center=False``), onesided, not normalized; the ISTFT overlap-adds,
+divides by the window-squared envelope guarded at 1e-11, trims the centre
+padding and crops or zero-pads to ``length``.  The window is given at full
+n_fft length (the operators right-pad a hann(512) to 1024); only its
+support (the nonzero prefix) is used.  ``STFT`` holds one geometry;
+``stft`` and ``istft`` are the JAX package's functional forms over a cached
+``STFT``.
 
 K2 is the pair of CUDA kernels in ``csrc/stft.cu``: ``stft_analysis`` (a
 windowed real FFT of every frame) and ``stft_synthesis`` (an inverse real
@@ -32,6 +34,7 @@ versions (``torch.fft``); a CUDA tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import numpy as np
 import torch
@@ -324,16 +327,17 @@ stft_synthesis.by_n_fft = {}
 # one STFT geometry
 # ---------------------------------------------------------------------------
 class STFT:
-    """An STFT geometry (n_fft, hop, window, pad mode) with its plan on
-    ``device``; ``stft`` and ``istft`` follow torch.stft / torch.istft.  On
-    any device but the CPU an n_fft outside 2..MAX_N_FFT raises."""
+    """An STFT geometry (n_fft, hop, window, pad mode, centring) with its
+    plan on ``device``; ``stft`` and ``istft`` follow torch.stft /
+    torch.istft.  On any device but the CPU an n_fft outside 2..MAX_N_FFT
+    raises."""
 
     def __init__(self, n_fft: int, hop_length: int, window: np.ndarray, *,
-                 pad_mode: str = "reflect", device=None):
+                 pad_mode: str = "reflect", center: bool = True, device=None):
         window = np.asarray(window, np.float32)
         if window.shape != (n_fft,):
             raise ValueError("window must be length n_fft (pre-padded)")
-        self.n_fft, self.hop, self.pad_mode = n_fft, hop_length, pad_mode
+        self.n_fft, self.hop, self.pad_mode, self.center = n_fft, hop_length, pad_mode, center
         self.device = resolve_device(device)
         self.plan = StftPlan(n_fft, hop_length, window, self.device)
         if self.device.type != "cpu" and self.plan.radices is None:
@@ -347,11 +351,16 @@ class STFT:
         self._env: dict = {}
 
     def frame_blocks(self, x: torch.Tensor):
-        """(N, L) real -> the centre-padded signal as (N, nb, hop) blocks,
-        and the frame count."""
-        p = self.n_fft // 2
-        x = F.pad(x[:, None], (p, p), mode=self.pad_mode)[:, 0]
+        """(N, L) real -> the signal, centre-padded where ``center``, as
+        (N, nb, hop) blocks, and the frame count.  Without centring a
+        signal shorter than n_fft raises, as in torch.stft."""
+        if self.center:
+            p = self.n_fft // 2
+            x = F.pad(x[:, None], (p, p), mode=self.pad_mode)[:, 0]
         L = x.shape[-1]
+        if L < self.n_fft:
+            raise ValueError(f"stft: a signal of {L} samples is shorter than "
+                             f"n_fft={self.n_fft}")
         n_frames = 1 + (L - self.n_fft) // self.hop
         nb = max(-(-L // self.hop), n_frames - 1 + self.taps)
         return F.pad(x, (0, nb * self.hop - L)).reshape(-1, nb, self.hop), n_frames
@@ -376,16 +385,59 @@ class STFT:
         return env
 
     def istft(self, spec: torch.Tensor, length: int | None = None) -> torch.Tensor:
-        """(..., F, n_frames) complex -> (..., length) real."""
+        """(..., F, n_frames) complex -> (..., length) real: the overlap-add
+        from n_fft//2 on where ``center`` (else from 0), zero-padded or
+        cropped to ``length``."""
         lead, n_frames = spec.shape[:-2], spec.shape[-1]
         spec = spec.reshape((-1,) + spec.shape[-2:]).to(torch.complex64)
         y = stft_synthesis(spec, self.plan)
         ola_len = self.n_fft + self.hop * (n_frames - 1)
         y = F.pad(y, (0, ola_len - y.shape[-1])) if y.shape[-1] < ola_len else y[:, :ola_len]
         y = y / self._envelope(n_frames)
-        start = self.n_fft // 2
+        start = self.n_fft // 2 if self.center else 0
         end = start + length if length is not None else ola_len - start
         if end > ola_len:
             y = F.pad(y, (0, end - ola_len))
         y = y[:, start:end]
         return y.reshape(lead + y.shape[-1:])
+
+
+# ---------------------------------------------------------------------------
+# the functional forms (``buddy_tpu/ops/stft.py:205,401``)
+# ---------------------------------------------------------------------------
+@functools.lru_cache(maxsize=None)
+def _cached_geometry(wbytes: bytes, n_fft: int, hop: int, pad_mode: str, center: bool,
+                     device: torch.device) -> STFT:
+    return STFT(n_fft, hop, np.frombuffer(wbytes, np.float32), pad_mode=pad_mode,
+                center=center, device=device)
+
+
+def _geometry(window, n_fft: int, hop: int, pad_mode: str, center: bool, device) -> STFT:
+    """The ``STFT`` of these settings on ``device``, built once."""
+    if isinstance(window, torch.Tensor):
+        window = window.detach().cpu().numpy()
+    wbytes = np.ascontiguousarray(window, np.float32).tobytes()
+    return _cached_geometry(wbytes, n_fft, hop, pad_mode, center, device)
+
+
+def stft(x: torch.Tensor, window, *, n_fft: int, hop_length: int, center: bool = True,
+         pad_mode: str = "reflect") -> torch.Tensor:
+    """torch.stft (onesided, not normalized, complex output): (..., L) real
+    -> (..., n_fft // 2 + 1, n_frames) complex64, differentiable in ``x``.
+
+    ``window`` is the (n_fft,) analysis window, pre-padded, as numpy or a
+    tensor; either way it is read as a constant and no gradient flows to it
+    (the JAX package could differentiate a traced window; no caller passes
+    one).  On a CUDA tensor this launches K2's analysis; an n_fft above
+    MAX_N_FFT raises there."""
+    return _geometry(window, n_fft, hop_length, pad_mode, center, x.device).stft(x)
+
+
+def istft(spec: torch.Tensor, window, *, n_fft: int, hop_length: int, center: bool = True,
+          length: int | None = None) -> torch.Tensor:
+    """torch.istft (onesided, not normalized): (..., n_fft // 2 + 1,
+    n_frames) complex -> (..., length) real, differentiable in ``spec``;
+    ``window`` as for ``stft``.  On a CUDA tensor this launches K2's
+    synthesis."""
+    geom = _geometry(window, n_fft, hop_length, "reflect", center, spec.device)
+    return geom.istft(spec, length)

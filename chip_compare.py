@@ -17,6 +17,7 @@ each run's Python profile of one ``do_test()`` to
 chiprun_out/compare_python_<run>.txt.
 """
 
+import importlib
 import json
 import os
 import subprocess
@@ -40,7 +41,8 @@ def kernel_times(dev) -> dict:
     from buddy_tpu_torch.config import compose
     from buddy_tpu_torch.operators.subband import BlindSubbandFiltering
     import numpy as np
-    from buddy_tpu_torch.ops import filter_design as K6, minphase as K5, stft as K2
+    from buddy_tpu_torch.ops import filter_design as K6, minphase as K5
+    K2 = importlib.import_module("buddy_tpu_torch.ops.stft")
     from buddy_tpu_torch.ops import wpe_solve as K7
     from buddy_tpu_torch.ops.stft import STFT, hann_window
     args = compose("conf_VCTK.yaml", ["tester=blind_dereverberation_BUDDy"])

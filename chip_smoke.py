@@ -37,7 +37,12 @@ Phases, each printing one line:
    250 and 512 and on its chirp route), each one kernel a call with no
    library FFT, a length above each cap refused, and the shipped
    geometries' outputs held bit for bit to commit d09e59e's kernels
-   (digests);
+   (digests); then the functional ``stft`` / ``istft`` of
+   ``buddy_tpu_torch.ops`` at the model geometry (510/128) on (8, 65536)
+   float32, center True / False x pad_mode reflect / constant, istft at
+   three lengths, against K2's plain versions on the same CUDA tensors
+   (2e-5 / 1e-4 of the peak) and torch.stft / torch.istft, K2's launches
+   counted and no library FFT inside;
 4. the main path, through the tester: a paired test set (the 8 in-repo clean
    utterances of 65536 samples, 8 RIRs made from a seed) is written under
    chiprun_out/, and ``Tester.do_test()`` runs blind BUDDy dereverberation
@@ -52,11 +57,11 @@ Phases, each printing one line:
    to chiprun_out/); then the WPE warm init alone, its device time split
    into K7, K2 and the matmuls;
 5. the tester's other paths: informed dereverberation (serial, time-domain
-   RIR operator, 2 items) and unconditional sampling (2 samples of 65536)
-   at full width with T=2; one item of 196608 samples through the chunked
-   path at a small network; and the CLI, ``python -m
-   buddy_tpu_torch.testing``, as a subprocess with a checkpoint that the
-   JAX package wrote;
+   RIR operator, 2 items), with full and with identity guidance, and
+   unconditional sampling (2 samples of 65536) at full width with T=2; one
+   item of 196608 samples through the chunked path at a small network; and
+   the CLI, ``python -m buddy_tpu_torch.testing``, as a subprocess with a
+   checkpoint that the JAX package wrote;
 6. training and checkpointing: the 8 in-repo clean utterances written under
    chiprun_out/train/<speaker>/ and read through ``VCTKTrain`` and
    ``make_train_loader`` with ``exp.num_workers`` and ``exp.seed`` (the
@@ -82,8 +87,10 @@ Phases, each printing one line:
    window of a training file; the training CLI ``python -m buddy_tpu_torch.training`` at
    nf=8 (on the native loader, by its ``Loader:`` line), then the testing
    CLI on the checkpoint it wrote;
-7. the blind program and one train step at a small size on the card
-   (kernels) and on the CPU (plain versions) with the same weights and
+7. the blind program (with full and with identity guidance, its U-Net at
+   ``init_scale`` 1 so that its output enters; the two modes must end at
+   least 1e-2 of the peak apart) and one train step at a small size on the
+   card (kernels) and on the CPU (plain versions) with the same weights and
    noise: the outputs must agree; also the blind program with
    ``fuse_resample`` and static int8 (scales calibrated on the card and
    copied to the CPU network; its 16-64 channels run K10's mma route, whose
@@ -108,13 +115,17 @@ Phases, each printing one line:
    operands (an im2col matrix at 3x3); K8's float route (one cuDNN
    transposed convolution) against upsample + conv at the up-blocks (run
    after phase 3); then ``Tester.do_test()`` in blind mode at full width,
-   T=2, three times: the serving profile (``fuse_resample``), int8 static
-   after ``NetworkBundle.calibrate_quant`` (bench.py's recipe), int8 dynamic
+   T=2, four times: the serving profile (``fuse_resample``), the fast
+   serving profile (the same with identity guidance: K1's backward
+   launched 0 times, K1's forward and K2-K7 more than 0, by the wrappers'
+   counts and the profile's kernel names), int8 static after
+   ``NetworkBundle.calibrate_quant`` (bench.py's recipe), int8 dynamic
    with ``quantize_bwd``: sampler ms a step, K10's launches a step (> 0;
    the sm90 route > 0 and the mma route 0, by the wrappers' counts and by
    the profile's kernel names), the fused convs' calls (> 0 in the serving
-   run), five WAV sets, and one profiled run each (device ms and launches a
-   step, K10's device ms, idle share) (run after phase 5);
+   runs), five WAV sets, and one profiled run each (device ms and launches
+   a step, K10's or the port's kernels' device ms, idle share) (run after
+   phase 5);
 9. the rest of NCSN++'s configuration space at full width (nf=128,
    ch_mult [1,2,2,2], 65536-sample utterances), after phase 7: FIR
    resampling at the top up- and down-block shapes (float32), wrapper
@@ -163,7 +174,8 @@ Phases, each printing one line:
    process (the recomputation's all-gathers counted); (g) K1 at each local
    shape (e) runs (C/2 channels in G/2 groups, float32, forward and
    backward) against its plain version, device us a launch beside the
-   whole-width launch.  Then the total seconds.
+   whole-width launch.  Then the total seconds (and, after phase 7, those
+   of the fast serving profile's and the functional STFT's parts).
 
 A JSON line of the kernels' results precedes the last line (K1's float32
 rows from phase 6, their launches those of its training loop; K2's check
@@ -174,6 +186,7 @@ exits non-zero without that line.  It imports nothing of JAX.
 
 import concurrent.futures
 import contextlib
+import importlib
 import json
 import os
 import shutil
@@ -431,7 +444,8 @@ def synthesis_basis(plan):
 def kernel_checks(dev):
     import torch
     import torch.nn.functional as F
-    from buddy_tpu_torch.ops import groupnorm as K1, stft as K2, subband_conv as K3
+    from buddy_tpu_torch.ops import groupnorm as K1, subband_conv as K3
+    K2 = importlib.import_module("buddy_tpu_torch.ops.stft")
     from buddy_tpu_torch.ops.fft_plan import conv_fft_size
     from buddy_tpu_torch.ops.stft import STFT, hann_window
     import numpy as np
@@ -1232,7 +1246,8 @@ def new_lengths(dev) -> dict:
     a call and no other; a length above each cap raises ValueError."""
     import numpy as np
     import torch
-    from buddy_tpu_torch.ops import minphase as K5, stft as K2
+    from buddy_tpu_torch.ops import minphase as K5
+    K2 = importlib.import_module("buddy_tpu_torch.ops.stft")
     from buddy_tpu_torch.ops.fft_plan import MINPHASE_MAX_L, MinPhasePlan
     from buddy_tpu_torch.ops.stft import MAX_N_FFT, STFT, hann_window
     rng = np.random.default_rng(21)
@@ -1338,7 +1353,8 @@ def shipped_digests(dev) -> dict:
     import hashlib
     import numpy as np
     import torch
-    from buddy_tpu_torch.ops import minphase as K5, stft as K2
+    from buddy_tpu_torch.ops import minphase as K5
+    K2 = importlib.import_module("buddy_tpu_torch.ops.stft")
     from buddy_tpu_torch.ops.stft import STFT, hann_window
     rng = np.random.default_rng(31)
     on = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(dev)
@@ -1375,6 +1391,127 @@ def check_digests(dev) -> None:
         raise AssertionError(f"shipped geometries: outputs differ from commit d09e59e's kernels: {differ}")
     log(f"K2 at the operator, model, WPE and cons geometries and K5 at Nf = 100, fwd and bwd: "
         f"bit-identical to commit d09e59e's kernels on the same inputs ({len(ours)} digests)")
+
+
+# the functional stft / istft: (center, pad_mode) at the model geometry
+FUNCTIONAL_STFT = ((True, "reflect"), (True, "constant"), (False, "reflect"), (False, "constant"))
+
+
+@contextlib.contextmanager
+def k2_plain():
+    """K2's dispatch on its plain versions whatever the tensors' device: the
+    functional forms' reference on the same CUDA tensors."""
+    K2 = importlib.import_module("buddy_tpu_torch.ops.stft")
+    saved = K2._analysis, K2._synthesis
+    K2._analysis = K2.analysis_plain
+    K2._synthesis = lambda spec, plan, bin_w: K2.synthesis_plain(spec, plan, bin_w).reshape(
+        spec.shape[0], -1, plan.hop)
+    try:
+        yield
+    finally:
+        K2._analysis, K2._synthesis = saved
+
+
+def functional_stft_checks(dev) -> dict:
+    """The functional ``stft`` / ``istft`` (``buddy_tpu_torch.ops``) at the
+    model geometry (510/128, Hann) on (8, 65536) float32, for center True /
+    False x pad_mode reflect / constant, istft at three lengths (None,
+    4096 shorter, 4096 longer): against K2's plain versions on the same
+    CUDA tensors (2e-5 of the peak forward, 1e-4 inverse) and against
+    torch.stft / torch.istft (the yardstick; the port never calls them),
+    which refuses a Hann window without centring (its envelope is 0 at
+    sample 0): there the inverse is also held to it with a Hamming window.
+    The kernels' launches are counted (> 0 each), one stft + istft pair is
+    profiled (K2's two kernels and no library FFT), and both are timed
+    beside the library calls (CUDA events, cold)."""
+    import numpy as np
+    import torch
+    K2 = importlib.import_module("buddy_tpu_torch.ops.stft")
+    from buddy_tpu_torch.ops import istft, stft
+    n_fft, hop = 510, 128
+    hann = K2.hann_window(n_fft)
+    hamming = (0.54 - 0.46 * np.cos(2.0 * np.pi * np.arange(n_fft) / n_fft)).astype(np.float32)
+    g = torch.Generator().manual_seed(31)
+    rand = lambda *s: torch.randn(s, generator=g).to(dev)
+    x = rand(8, 65536)
+    real = torch.view_as_real
+    worst = {"stft": 0.0, "istft": 0.0, "torch.stft": 0.0, "torch.istft": 0.0}
+    launches = {"stft_analysis": 0, "stft_synthesis": 0}
+    refused = 0
+
+    def held(what, key, ours, ref, tol):
+        peak = float(ref.abs().max())
+        err = max_err(ours, ref)
+        check(f"functional {what}", err, tol * peak)
+        worst[key] = max(worst[key], err / peak)
+
+    for center, pad_mode in FUNCTIONAL_STFT:
+        kw = dict(n_fft=n_fft, hop_length=hop, center=center)
+        what = f"center={center} {pad_mode}"
+        K2.stft_analysis.launches = K2.stft_synthesis.launches = 0
+        spec = stft(x, hann, pad_mode=pad_mode, **kw)
+        with k2_plain():
+            spec_p = stft(x, hann, pad_mode=pad_mode, **kw)
+        lib = torch.stft(x, n_fft, hop, window=torch.as_tensor(hann, device=dev), center=center,
+                         pad_mode=pad_mode, return_complex=True)
+        held(f"stft {what}", "stft", real(spec), real(spec_p), 2e-5)
+        held(f"stft {what} (torch.stft)", "torch.stft", real(spec), real(lib), 2e-5)
+        T = spec.shape[-1]
+        natural = n_fft + hop * (T - 1) - (2 * (n_fft // 2) if center else 0)
+        spec_in = torch.complex(rand(8, n_fft // 2 + 1, T), rand(8, n_fft // 2 + 1, T))
+        for wname, window in [("hann", hann)] + ([("hamming", hamming)] if not center else []):
+            for length in (None, natural - 4096, natural + 4096):
+                y = istft(spec_in, window, length=length, **kw)
+                if y.shape != (8, natural if length is None else length):
+                    raise AssertionError(f"functional istft {what} length={length}: {y.shape}")
+                with k2_plain():
+                    y_p = istft(spec_in, window, length=length, **kw)
+                held(f"istft {what} {wname} length={length}", "istft", y, y_p, 1e-4)
+                wt = torch.as_tensor(window, device=dev)
+                lib_y = _try(lambda: torch.istft(spec_in, n_fft, hop, window=wt, center=center,
+                                                 length=length))
+                if center or wname == "hamming":
+                    held(f"istft {what} {wname} length={length} (torch.istft)", "torch.istft",
+                         y, lib_y, 1e-4)
+                elif isinstance(lib_y, RuntimeError):
+                    refused += 1
+                else:
+                    raise AssertionError("torch.istft took a Hann window without centring")
+        counts = (K2.stft_analysis.launches, K2.stft_synthesis.launches)
+        if 0 in counts:
+            raise AssertionError(f"functional stft/istft {what}: K2 launches {counts}")
+        launches["stft_analysis"] += counts[0]
+        launches["stft_synthesis"] += counts[1]
+
+    def pair():
+        return istft(stft(x, hann, n_fft=n_fft, hop_length=hop), hann, n_fft=n_fft,
+                     hop_length=hop, length=65536)
+
+    with torch.no_grad():
+        found = profile_device_us(pair, reps=5)
+        library_fft = [k for k in found if "fft" in k.lower() and not k.startswith("stft_")]
+        if "stft_analysis_kernel" not in found or "stft_synthesis_kernel" not in found \
+                or library_fft:
+            raise AssertionError(f"functional stft + istft: kernels {sorted(found)}")
+        wt = torch.as_tensor(hann, device=dev)
+        spec = stft(x, hann, n_fft=n_fft, hop_length=hop)
+        ms = {"stft": cuda_ms(lambda: stft(x, hann, n_fft=n_fft, hop_length=hop)),
+              "torch.stft": cuda_ms(lambda: torch.stft(x, n_fft, hop, window=wt,
+                                                       return_complex=True)),
+              "istft": cuda_ms(lambda: istft(spec, hann, n_fft=n_fft, hop_length=hop,
+                                             length=65536)),
+              "torch.istft": cuda_ms(lambda: torch.istft(spec, n_fft, hop, window=wt,
+                                                         length=65536))}
+    out = {"worst_err_of_peak": {k: float(f"{v:.3e}") for k, v in worst.items()},
+           "launches": launches, "torch_istft_refused": refused,
+           "kernels_in_a_pair": {k: v[1] // 5 for k, v in found.items()},
+           "ms_cold": {k: round(v, 4) for k, v in ms.items()}}
+    log(f"functional stft / istft (model geometry 510/128, (8, 65536) float32; center True / "
+        f"False x reflect / constant, istft lengths None, -4096, +4096): against K2's plain "
+        f"versions within 2e-5 / 1e-4 of the peak and against torch.stft / torch.istft (which "
+        f"refused Hann without centring {refused} times: held there with a Hamming window); "
+        f"no library FFT inside: " + json.dumps(out))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1638,9 +1775,10 @@ def main_path(dev, wrappers):
     return launches, wall
 
 
-def other_modes(dev) -> None:
-    """Phase 5: informed and unconditional at full width, the chunked path
-    at a small network, and the CLI as a subprocess."""
+def other_modes(dev) -> float:
+    """Phase 5: informed (full and identity guidance) and unconditional at
+    full width, the chunked path at a small network, and the CLI as a
+    subprocess; returns the informed identity run's seconds."""
     import numpy as np
     import torch
     data = os.path.join(OUT_DIR, "smoke_data")
@@ -1653,6 +1791,17 @@ def other_modes(dev) -> None:
     check_outputs(tester, "informed_dereverberation", 2, 65536, blind=False)
     log(f"informed dereverberation (serial, RIR operator, 2 items x 65536, full width, T=2): "
         f"4 directories x 2 finite WAVs in {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    _, _, tester = build_tester(dev, "informed_dereverberation_DPS", data, "informed_identity",
+                                wide + ["dset.test.num_examples=2", IDENTITY])
+    if tester.sampler.guidance_jacobian != "identity":
+        raise AssertionError(f"informed identity: {tester.sampler.guidance_jacobian} guidance")
+    tester.do_test()
+    check_outputs(tester, "informed_dereverberation", 2, 65536, blind=False)
+    identity_s = time.perf_counter() - t0
+    log(f"informed dereverberation with identity guidance (serial, RIR operator, 2 items x "
+        f"65536, full width, bf16, T=2): 4 directories x 2 finite WAVs in {identity_s:.1f} s")
 
     t0 = time.perf_counter()
     _, _, tester = build_tester(dev, "only_unconditional", data, "unconditional",
@@ -1710,6 +1859,7 @@ def other_modes(dev) -> None:
         raise AssertionError("CLI: reconstructed/utt0.wav is not 65536 finite samples")
     log(f"CLI (python -m buddy_tpu_torch.testing, blind, batched, 2 items, nf=8 with the "
         f"checkpoint the JAX package wrote): exit 0, 5 WAV sets in {time.perf_counter() - t0:.1f} s")
+    return identity_s
 
 
 def build_program(overrides, dev, seed: int = 0):
@@ -1725,18 +1875,27 @@ def build_program(overrides, dev, seed: int = 0):
     return sampler, op
 
 
-def small_reference(dev):
-    """The blind program at a small size, kernels on the card against plain
-    versions on the CPU, same weights (same seed) and noise."""
+def small_reference(dev, guidance: str = "full"):
+    """The blind program at a small size with ``guidance`` (full or
+    identity), kernels on the card against plain versions on the CPU, same
+    weights (same seed) and noise; returns the card's and the CPU's
+    outputs.  The shipped ``init_scale`` 0 zeroes every residual branch's
+    last conv and the output conv, which leaves the denoiser c_skip x, a
+    linear-diagonal map under which identity and full guidance agree; at
+    ``init_scale`` 1 the U-Net takes part."""
     import torch
     from buddy_tpu_torch.sampling.euler_heun import NoiseSource
-    overrides = ["network.nf=16", "network.ch_mult=[1,2,2,2]", "tester.sampling_params.T=2",
+    overrides = ["network.init_scale=1.0",
+                 "network.nf=16", "network.ch_mult=[1,2,2,2]", "tester.sampling_params.T=2",
                  "tester.posterior_sampling.blind_hp.op_updates_per_step=2",
-                 "tester.posterior_sampling.warm_initialization.mode=reverb_scaled"]
+                 "tester.posterior_sampling.warm_initialization.mode=reverb_scaled",
+                 f"tester.posterior_sampling.guidance_jacobian={guidance}"]
     ys = torch.from_numpy(load_wavs("degraded", 2, 16384))
     outs = []
     for d in (dev, torch.device("cpu")):
         sampler, op = build_program(overrides, d)
+        if sampler.guidance_jacobian != guidance:
+            raise AssertionError(f"small program: {sampler.guidance_jacobian} guidance")
         params, H = op.reset_batched(2, noise=torch.randn((2, op.length_rir),
                                                           generator=torch.Generator().manual_seed(4)))
         out = sampler.predict_conditional_batched(ys, op, blind=True, noise=NoiseSource(torch.Generator().manual_seed(5)),
@@ -1746,9 +1905,11 @@ def small_reference(dev):
     # amplify rounding where the second moment is small: 5e-3 of the peak
     err = max_err(outs[0], outs[1])
     tol = 5e-3 * float(outs[1].abs().max())
-    check("small blind program, card vs CPU", err, tol)
-    log(f"small blind program (B=2, 16384 samples, T=2): card kernels vs CPU plain versions, "
-        f"max abs error {err:.3e} (tolerance {tol:.3e})")
+    check(f"small blind program ({guidance} guidance), card vs CPU", err, tol)
+    log(f"small blind program (B=2, 16384 samples, T=2, init_scale 1, {guidance} guidance): card "
+        f"kernels vs CPU plain versions, max abs error {err:.3e} (tolerance {tol:.3e}, "
+        f"{err / float(outs[1].abs().max()):.2e} of the peak)")
+    return outs
 
 
 # ---------------------------------------------------------------------------
@@ -1962,7 +2123,7 @@ def k2_training_checks(dev) -> dict:
     import numpy as np
     import torch
     import torch.nn.functional as F
-    from buddy_tpu_torch.ops import stft as K2
+    K2 = importlib.import_module("buddy_tpu_torch.ops.stft")
     from buddy_tpu_torch.ops.stft import STFT, hann_window, pad_spec_frames
     g = torch.Generator(device=dev).manual_seed(3)
     rand = lambda *s: torch.randn(s, generator=g, device=dev)
@@ -2464,9 +2625,14 @@ INT8_STEPS = 2                  # diffusion steps of the serving and int8 runs
 K10_KERNELS = ("qc_absmax_kernel", "qc_quantize_kernel", "qc_weight_kernel", "qc_conv_kernel",
                "qc_conv_sm90_kernel")
 SERVING = ["network.compute_dtype=bfloat16", "network.fuse_resample=true"]
+FULL = "tester.posterior_sampling.guidance_jacobian=full"
+IDENTITY = "tester.posterior_sampling.guidance_jacobian=identity"   # the fast serving profile
 INT8_STATIC = SERVING + ["network.quantize_int8=true", "network.quantize_static=true"]
 INT8_DYNAMIC = SERVING + ["network.quantize_int8=true", "network.quantize_accum=int32",
                           "network.quantize_bwd=true"]
+# phase 8's runs through the tester: label, network overrides, guidance
+SERVING_RUNS = (("serving", SERVING, FULL), ("serving_identity", SERVING, IDENTITY),
+                ("int8_static", INT8_STATIC, FULL), ("int8_dynamic", INT8_DYNAMIC, FULL))
 
 
 def int8_conv_shapes(dev) -> list:
@@ -2758,30 +2924,35 @@ def calibration_inputs(dev, edm, seed: int = 7):
     return xs, cns
 
 
-def serving_and_int8_runs(dev) -> dict:
-    """``Tester.do_test()`` in blind mode at full width, B=8 x 65536, full
-    guidance, 10 operator updates a step, T=2: the serving profile
-    (``fuse_resample``), then int8 static after ``calibrate_quant``, then
-    int8 dynamic with int32 sums, ``quantize_bwd`` and fused up-blocks.
-    Each: a network built anew (its convs quantize their weights in the
-    run), the counts set to 0 just before, read just after, five WAV sets
-    of 8 finite files, sampler ms a step; then one more run profiled."""
+def serving_and_int8_runs(dev, wrappers) -> dict:
+    """``Tester.do_test()`` in blind mode at full width, B=8 x 65536, 10
+    operator updates a step, T=2: the serving profile (``fuse_resample``)
+    with full guidance, then the fast serving profile (the same with
+    identity guidance), then int8 static after ``calibrate_quant`` and int8
+    dynamic with int32 sums, ``quantize_bwd`` and fused up-blocks, both
+    with full guidance.  Each: a network built anew (its convs quantize
+    their weights in the run), the counts set to 0 just before, read just
+    after, five WAV sets of 8 finite files, sampler ms a step; then one more
+    run profiled.  The fast profile runs no U-Net backward: K1's backward
+    launches 0 times (by its count and by the profile's kernel names), K1's
+    forward and K2-K7 more than 0 each."""
     import torch
     from buddy_tpu_torch.models import layers as L
     from buddy_tpu_torch.ops import qconv as Q
     data = os.path.join(OUT_DIR, "smoke_data")
     common = [f"tester.sampling_params.T={INT8_STEPS}",
-              "tester.posterior_sampling.guidance_jacobian=full",
               "tester.posterior_sampling.blind_hp.op_updates_per_step=10",
               "tester.batched.use=True", "tester.batched.batch_size=8"]
     k10 = {"int8_conv_sm90": Q.int8_conv_sm90, "int8_conv_mma": Q.int8_conv_mma,
            "quantize_act": Q.quantize_act, "quantize_weight": Q.quantize_weight}
     out = {}
-    for label, over in (("serving", SERVING), ("int8_static", INT8_STATIC),
-                        ("int8_dynamic", INT8_DYNAMIC)):
+    for label, over, guidance in SERVING_RUNS:
         t0 = time.perf_counter()
         args, net, tester = build_tester(dev, "blind_dereverberation_BUDDy", data, label,
-                                         common + over)
+                                         common + over + [guidance])
+        mode = guidance.split("=")[1]
+        if tester.sampler.guidance_jacobian != mode:
+            raise AssertionError(f"{label}: {tester.sampler.guidance_jacobian} guidance")
         if label == "int8_static":
             net.calibrate_quant(*calibration_inputs(dev, tester.diff_params))
             scales = [b for n, b in net.module.named_buffers() if n.endswith("a_scale")]
@@ -2805,37 +2976,52 @@ def serving_and_int8_runs(dev) -> dict:
             tester.do_test()
             torch.cuda.synchronize()
 
-        for w in k10.values():
+        for w in list(k10.values()) + list(wrappers.values()):
             w.launches = 0
         L.FusedUpConv.float_calls = 0
         run()
         launches = {k: w.launches for k, w in k10.items()}
+        port = {k: w.launches for k, w in wrappers.items()}
         fused = L.FusedUpConv.float_calls
         check_outputs(tester, "blind_dereverberation", 8, 65536, blind=True)
-        if label == "serving" and fused == 0:
-            raise AssertionError("serving profile: no fused up-convolution ran")
-        if label != "serving":
+        if label.startswith("serving") and fused == 0:
+            raise AssertionError(f"{label}: no fused up-convolution ran")
+        if label == "serving_identity":
+            missing = [k for k, v in port.items() if v == 0 and k != "groupnorm_silu_bwd"]
+            if missing or port["groupnorm_silu_bwd"] != 0:
+                raise AssertionError(f"{label}: kernels not launched: {missing}; K1's backward "
+                                     f"launched {port['groupnorm_silu_bwd']} times")
+        elif label != "serving":
             # every conv of the full-width U-Net takes the sm90 route
             missing = [k for k, v in launches.items() if v == 0 and k != "int8_conv_mma"]
             if missing or launches["int8_conv_mma"] != 0:
                 raise AssertionError(f"{label}: K10 wrappers not launched: {missing}; the mma "
                                      f"route launched {launches['int8_conv_mma']} times")
-        prof = profile_run(run, INT8_STEPS, K10_KERNELS, label)
-        if label != "serving" and (prof["kernels_launches"]["qc_conv_sm90_kernel"] == 0 or
-                                   prof["kernels_launches"]["qc_conv_kernel"] != 0):
+        names = _PORT_KERNELS if label == "serving_identity" else K10_KERNELS
+        prof = profile_run(run, INT8_STEPS, names, label)
+        seen = prof["kernels_launches"]
+        if label == "serving_identity" and (
+                seen["gn_bwd_stats_kernel"] or seen["gn_bwd_apply_kernel"]
+                or not seen["gn_stats_kernel"] or not seen["gn_apply_kernel"]):
+            raise AssertionError(f"{label}: the profile shows K1's kernels {seen}")
+        if label.startswith("int8") and (seen["qc_conv_sm90_kernel"] == 0 or
+                                         seen["qc_conv_kernel"] != 0):
             raise AssertionError(f"{label}: the profile shows qc_conv_sm90_kernel "
-                                 f"{prof['kernels_launches']['qc_conv_sm90_kernel']} and "
-                                 f"qc_conv_kernel {prof['kernels_launches']['qc_conv_kernel']} "
-                                 f"times (want > 0 and 0)")
-        out[label] = {"sampler_ms_per_step": round(sampler_s[0] / INT8_STEPS * 1e3, 1),
+                                 f"{seen['qc_conv_sm90_kernel']} and qc_conv_kernel "
+                                 f"{seen['qc_conv_kernel']} times (want > 0 and 0)")
+        out[label] = {"seconds": round(time.perf_counter() - t0, 1),
+                      "sampler_ms_per_step": round(sampler_s[0] / INT8_STEPS * 1e3, 1),
                       "k10_launches": launches,
                       "k10_launches_per_step": {k: round(v / INT8_STEPS, 1)
                                                 for k, v in launches.items()},
                       "fused_float_calls": fused, **prof}
+        if label == "serving_identity":
+            out[label].update(port_launches=port, port_launches_per_step={
+                k: round(v / INT8_STEPS, 1) for k, v in port.items()})
         log(f"{label} (Tester.do_test(), blind, B=8 x 65536, full width, bf16 body, "
             f"{' '.join(o.split('=')[0].split('.')[-1] + '=' + o.split('=')[1] for o in over[1:])},"
-            f" T={INT8_STEPS}, full guidance, 10 updates/step): 5 directories x 8 finite WAVs; "
-            f"{time.perf_counter() - t0:.1f} s in all; " + json.dumps(out[label]))
+            f" T={INT8_STEPS}, {mode} guidance, 10 updates/step): 5 directories x 8 finite WAVs; "
+            + json.dumps(out[label]))
         del net, tester
         torch.cuda.empty_cache()
     return out
@@ -3295,7 +3481,8 @@ def mesh_steps(trainer, steps: int, batches_from: int = 0) -> list:
     """``steps`` train steps; for each the loss, the pre-clip norm, ms (CUDA
     events around the step), and K1's and K2's launches in it."""
     import torch
-    from buddy_tpu_torch.ops import groupnorm as K1, stft as K2
+    from buddy_tpu_torch.ops import groupnorm as K1
+    K2 = importlib.import_module("buddy_tpu_torch.ops.stft")
     counters = (K1.group_norm_act, K1.group_norm_act_backward, K2.stft_analysis,
                 K2.stft_synthesis)
     out = []
@@ -3778,7 +3965,7 @@ def mesh_spectrogram(dev) -> None:
     utterance on the card (K2) against the CPU's (its plain version), the
     magnitudes to 1e-4 of their peak."""
     import torch
-    from buddy_tpu_torch.ops import stft as K2
+    K2 = importlib.import_module("buddy_tpu_torch.ops.stft")
     from buddy_tpu_torch.utils.log import log_spectrogram
     x = torch.from_numpy(load_wavs("clean", 1, 65536)[0, 0])
     cfg = {"win_size": 1024, "hop_size": 256}
@@ -4141,8 +4328,8 @@ def main() -> int:
         os.remove(LOG_PATH)
     from buddy_tpu_torch.device import resolve_device
     from buddy_tpu_torch.ops import (_build, filter_design as K6, groupnorm as K1, minphase as K5,
-                                     spec_loss as K4, stft as K2, subband_conv as K3,
-                                     wpe_solve as K7)
+                                     spec_loss as K4, subband_conv as K3, wpe_solve as K7)
+    K2 = importlib.import_module("buddy_tpu_torch.ops.stft")
 
     dev = resolve_device("cuda")
     t_start = time.perf_counter()
@@ -4227,6 +4414,10 @@ def main() -> int:
     checks.update(fused_kernel_checks(dev))
     lengths = new_lengths(dev)
     check_digests(dev)
+    added = {}                                      # the fast profile's and functional STFT's seconds
+    t1 = time.perf_counter()
+    functional = functional_stft_checks(dev)
+    added["functional stft/istft (phase 3)"] = time.perf_counter() - t1
     log(f"kernel checks done in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     checks.update(k10_checks(dev))
@@ -4242,12 +4433,30 @@ def main() -> int:
             L: {"route": v["route"], "device_us": v["device_us_cold"][i], "err": v["err"][i]}
             for L, v in lengths["minphase"].items()}
 
+    checks["stft_analysis"]["extra"]["functional"] = functional
+    checks["stft_synthesis"]["extra"]["functional"] = {
+        k: functional[k] for k in ("launches", "torch_istft_refused", "ms_cold")}
+
     launches, _ = main_path(dev, wrappers)
-    other_modes(dev)
-    runs = serving_and_int8_runs(dev)
+    added["informed identity (phase 5)"] = other_modes(dev)
+    runs = serving_and_int8_runs(dev, wrappers)
+    added["fast serving profile (phase 8)"] = runs["serving_identity"]["seconds"]
     train = training_path(dev, wrappers)
     training_clis(dev)
-    small_reference(dev)
+    small = {"full": small_reference(dev)}
+    t1 = time.perf_counter()
+    small["identity"] = small_reference(dev, "identity")
+    apart = [max_err(small["identity"][i], small["full"][i]) / float(small["full"][i].abs().max())
+             for i in (0, 1)]
+    if min(apart) < 1e-2:
+        raise AssertionError(f"small program: identity and full guidance {apart} of the peak "
+                             f"apart (card, CPU): the switch does not act")
+    log(f"small blind program: identity and full guidance end {apart[0]:.3f} (card) and "
+        f"{apart[1]:.3f} (CPU) of the peak apart")
+    added["small identity program card vs CPU (phase 7)"] = time.perf_counter() - t1
+    log("the fast serving profile's and the functional STFT's parts, seconds: "
+        + json.dumps({k: round(v, 1) for k, v in added.items()})
+        + f", {sum(added.values()):.1f} in all")
     small_int8 = small_reference_int8(dev)
     train_step_card_vs_cpu(dev)
     t0 = time.perf_counter()
@@ -4281,6 +4490,8 @@ def main() -> int:
         what = name.split("_")[1]
         checks[name]["extra"]["training_shape"] = {k: train["k2"][k]
                                                    for k in (what, what + "_bwd")}
+    for name, count in runs["serving_identity"]["port_launches"].items():
+        checks[name]["extra"]["launches_fast_serving"] = count
     kernels = []
     for name, (route, source, replaces) in meta.items():
         c = checks[name]

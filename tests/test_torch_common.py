@@ -6,6 +6,7 @@ the plain PyTorch versions of its kernels (a CUDA kernel runs only on the
 card, where ``chip_smoke.py`` holds it against its plain version).
 """
 
+import importlib
 import os
 import re
 import subprocess
@@ -400,7 +401,8 @@ def test_kernel_wrappers_refuse_cpu_fallback_for_cuda_inputs():
     """A wrapper takes its plain version only for CPU tensors: a tensor that
     claims another device reaches the kernel path, which raises here (no
     card) instead of silently computing on the CPU."""
-    from buddy_tpu_torch.ops import groupnorm, stft, subband_conv
+    from buddy_tpu_torch.ops import groupnorm, subband_conv
+    stft = importlib.import_module("buddy_tpu_torch.ops.stft")
     meta = torch.empty((1, 4, 2, 2), device="meta")
     with pytest.raises((ValueError, RuntimeError, ImportError)):
         groupnorm.group_norm_act(meta, torch.ones(4, device="meta"),

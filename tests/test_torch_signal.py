@@ -1,6 +1,7 @@
 """Parity of the port's signal kernels (plain versions, CPU) with the JAX
 package: K2 STFT/ISTFT at the three geometries of the main path, K3 subband
-convolution, K1 GroupNorm(+SiLU), and the minimum-phase chain.
+convolution, K1 GroupNorm(+SiLU), and the minimum-phase chain; the
+functional ``stft`` / ``istft`` and the names ``buddy_tpu_torch.ops`` exports.
 
 Tolerances: both sides compute in float32 and sum in different orders (the
 port's torch.fft frames against JAX's FFTs), so values agree to a few float32 ulps
@@ -103,6 +104,121 @@ def test_istft_padded_frames_and_roundtrip():
     ref = torch.istft(padded, 510, 128, window=torch.from_numpy(_window(510, "hann")),
                       center=True, length=4096)
     assert rel_err(geom.istft(padded, 4096).numpy(), ref.numpy()) < 1e-5
+
+
+def _hamming(n: int) -> np.ndarray:
+    """Periodic Hamming window, torch.hamming_window(n) (nonzero at sample 0)."""
+    return (0.54 - 0.46 * np.cos(2.0 * np.pi * np.arange(n) / n)).astype(np.float32)
+
+
+@pytest.mark.parametrize("center,pad_mode", [(True, "reflect"), (True, "constant"),
+                                             (False, "reflect"), (False, "constant")])
+def test_functional_stft_istft(center, pad_mode):
+    """The functional ``stft`` / ``istft`` at the model geometry (510/128)
+    against the JAX package's and against torch.stft / torch.istft, istft at
+    three lengths (None, shorter and longer than its natural length):
+    values within 2e-5 (stft) and 1e-4 (istft) of the peak, the signal's
+    gradient through stft within 5e-5, the gradients of istft w.r.t. the
+    spectrum's real leaves within 1e-4, the tolerances of the STFT tests
+    above.  Without centring torch.istft refuses a Hann window (the
+    envelope is 0 at sample 0), so there the port is held to it with a
+    periodic Hamming window, and to JAX with both."""
+    from buddy_tpu.ops.stft import istft as jistft, stft as jstft
+    from buddy_tpu_torch.ops import istft, stft
+    from buddy_tpu_torch.ops.stft import hann_window
+    n_fft, hop = 510, 128
+    kw = dict(n_fft=n_fft, hop_length=hop, center=center)
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((2, 3000)).astype(np.float32)
+    w = hann_window(n_fft)
+    ours = stft(torch.from_numpy(x), w, pad_mode=pad_mode, **kw)
+    ref = np.asarray(jstft(jnp.asarray(x), w, pad_mode=pad_mode, **kw))
+    lib = torch.stft(torch.from_numpy(x), n_fft, hop, window=torch.from_numpy(w), center=center,
+                     pad_mode=pad_mode, return_complex=True).numpy()
+    assert ours.shape == ref.shape == lib.shape
+    assert rel_err(ours.numpy(), ref) < 2e-5
+    assert rel_err(ours.numpy(), lib) < 2e-5
+    r = rng.standard_normal(ref.shape).astype(np.float32)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    (torch.abs(stft(xt, torch.from_numpy(w), pad_mode=pad_mode, **kw)) ** 2
+     * torch.from_numpy(r)).sum().backward()
+    g_ref = jax.grad(lambda v: jnp.sum(jnp.abs(jstft(v, w, pad_mode=pad_mode, **kw)) ** 2 * r))(
+        jnp.asarray(x))
+    assert rel_err(xt.grad.numpy(), np.asarray(g_ref)) < 5e-5
+
+    F = n_fft // 2 + 1
+    re, im = (rng.standard_normal((2, F, 24)).astype(np.float32) for _ in range(2))
+    natural = n_fft + hop * 23 - (2 * (n_fft // 2) if center else 0)
+    for window in ([w, _hamming(n_fft)] if not center else [w]):
+        for length in (None, natural - 44, natural + 156):
+            out_len = natural if length is None else length
+            g_out = rng.standard_normal((2, out_len)).astype(np.float32)
+            ret, imt = (torch.from_numpy(a).requires_grad_(True) for a in (re, im))
+            y = istft(torch.complex(ret, imt), window, length=length, **kw)
+            (y * torch.from_numpy(g_out)).sum().backward()
+
+            def jfun(a, b):
+                return jistft(jax.lax.complex(a, b), window, length=length, **kw)
+            y_ref = np.asarray(jfun(jnp.asarray(re), jnp.asarray(im)))
+            assert y.shape == y_ref.shape == (2, out_len)
+            assert rel_err(y.detach().numpy(), y_ref) < 1e-4
+            g_re, g_im = jax.grad(lambda a, b: jnp.sum(jfun(a, b) * g_out), argnums=(0, 1))(
+                jnp.asarray(re), jnp.asarray(im))
+            assert rel_err(ret.grad.numpy(), np.asarray(g_re)) < 1e-4
+            assert rel_err(imt.grad.numpy(), np.asarray(g_im)) < 1e-4
+            if center or window is not w:
+                lib = torch.istft(torch.complex(torch.from_numpy(re), torch.from_numpy(im)),
+                                  n_fft, hop, window=torch.from_numpy(window), center=center,
+                                  length=length)
+                assert rel_err(y.detach().numpy(), lib.numpy()) < 1e-4
+            else:
+                with pytest.raises(RuntimeError):
+                    torch.istft(torch.complex(torch.from_numpy(re), torch.from_numpy(im)),
+                                n_fft, hop, window=torch.from_numpy(window), center=False)
+
+
+def test_functional_stft_refusals_and_cache():
+    """Without centring a signal shorter than n_fft raises, as torch.stft
+    does (the JAX package returns zero frames there); a window of another
+    length raises; one geometry is built once per window, settings and
+    device, whether the window comes as numpy or as a tensor."""
+    from buddy_tpu_torch.ops import stft
+    from buddy_tpu_torch.ops.stft import _cached_geometry, hann_window
+    w = hann_window(510)
+    short = torch.zeros((2, 509))
+    with pytest.raises(ValueError, match="shorter than n_fft"):
+        stft(short, w, n_fft=510, hop_length=128, center=False)
+    with pytest.raises(RuntimeError):
+        torch.stft(short, 510, 128, window=torch.from_numpy(w), center=False, return_complex=True)
+    assert stft(torch.zeros((2, 510)), w, n_fft=510, hop_length=128, center=False).shape == \
+        (2, 256, 1)
+    with pytest.raises(ValueError, match="length n_fft"):
+        stft(torch.zeros((2, 4096)), w[:256], n_fft=510, hop_length=128)
+    _cached_geometry.cache_clear()
+    x = torch.from_numpy(np.random.default_rng(5).standard_normal((1, 4096)).astype(np.float32))
+    a = stft(x, w, n_fft=510, hop_length=128)
+    b = stft(x, torch.from_numpy(w), n_fft=510, hop_length=128)
+    assert torch.equal(a, b) and _cached_geometry.cache_info().currsize == 1
+
+
+def test_ops_exports_match_the_jax_package():
+    """``buddy_tpu_torch.ops`` exports the eight names ``buddy_tpu.ops``
+    does, each a function of the port; importing it (in a fresh process)
+    loads no kernel library and imports no triton."""
+    import subprocess
+    import sys
+    import buddy_tpu.ops as jops
+    import buddy_tpu_torch.ops as tops
+    from test_torch_common import REPO
+    assert sorted(tops.__all__) == sorted(jops.__all__) and len(tops.__all__) == 8
+    for name in tops.__all__:
+        fn = getattr(tops, name)
+        assert callable(fn) and fn.__module__.startswith("buddy_tpu_torch.ops."), name
+    code = ("import sys, buddy_tpu_torch.ops as o; from buddy_tpu_torch.ops import _build; "
+            "assert 'triton' not in sys.modules and not _build._libs; print(o.stft.__name__)")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0 and out.stdout.split() == ["stft"], out.stderr[-2000:]
 
 
 def test_subband_conv_plain_matches_jax_and_adjoints():

@@ -14,6 +14,8 @@ adjoint tests hold the autograd functions' backward passes (the other
 kernel, with per-bin weights) to the forward passes on the CPU path.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -203,7 +205,7 @@ def test_analysis_and_synthesis_are_adjoint(name):
     float64 to 1e-10 relative; each backward also equals autograd through
     the plain version's torch.fft ops (1e-10), and the synthesis's gradient
     has no imaginary part at DC or Nyquist."""
-    from buddy_tpu_torch.ops import stft as K2
+    K2 = importlib.import_module("buddy_tpu_torch.ops.stft")
     geom = _geometry(name)[0]
     plan = geom.plan
     rng = np.random.default_rng(11)
