@@ -6,7 +6,7 @@
 Phases, each printing one line:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
-2. building the CUDA kernels (K1, K2, K3, K4's loss pair, K5, K6, K7, K10) from
+2. building the CUDA kernels (K1, K2, K3, K4's loss pair, K5, K6, K7, K10, K11) from
    ``buddy_tpu_torch/csrc`` with nvcc, one process per source, all at once
    (K4's Triton compression compiles at its first launch, in phase 3), and
    beside them the data pipeline's host library (``csrc/wavio.cpp``,
@@ -127,21 +127,29 @@ Phases, each printing one line:
    a step, K10's or the port's kernels' device ms, idle share) (run after
    phase 5);
 9. the rest of NCSN++'s configuration space at full width (nf=128,
-   ch_mult [1,2,2,2], 65536-sample utterances), after phase 7: FIR
-   resampling at the top up- and down-block shapes (float32), wrapper
-   against its zero-stuffing definition, forward and input vjp, timed
-   beside the byte bound; (a) ``Tester.do_test()`` in blind mode with
-   ``fir`` and both residual pyramids, float32 body, B=8, T=2, 10 operator
-   updates a step, WPE warm init: five WAV sets, sampler ms, K1's launches
-   a step (> 0), and a profiled run (device ms, launches and idle a step,
-   the FIR convolutions' device ms by kernel name); (b) the ddpm network
+   ch_mult [1,2,2,2], 65536-sample utterances), after phase 7: (a)
+   ``Tester.do_test()`` in blind mode with ``fir`` and both residual
+   pyramids, float32 body, B=8, T=2, 10 operator updates a step, WPE warm
+   init: five WAV sets, sampler ms, K1's and K11's launches a step (> 0;
+   K11's forward and input vjp of the up and the down passes, each launch
+   recorded by its geometry), and a profiled run (device ms, launches and
+   idle a step, K11's device ms by kernel name, no FIR-shaped library
+   convolution); then K11 (FIR resampling, ``csrc/upfirdn.cu``) at the top
+   up- and down-block shapes, at every other FIR geometry (a) recorded and
+   at generic small cases (up 3 / down 2, a negative pad, asymmetric and
+   non-square kernels, C = 1 and 3, ``upfirdn1d``): forward and input vjp
+   against the zero-stuffing definition (1e-5 of the peak), two calls bit
+   for bit, device us a launch cold and warm, wrapper ms, plain ms, the
+   byte bound, and the depthwise library route it replaced as the
+   yardstick (the table to chiprun_out/fir_k11.json); (b) the ddpm network
    without pyramids trained at the shipped exp (batch 16 x 65536, float32,
    deterministic cuDNN) for 3 steps with ``remat=false``, then 3 from the
    same weights, batches and draws with ``remat=true``: a finite loss, the
    gradients, parameters, EMA and moments bit for bit after every step, K1
    in every step, ms a step and peak memory of each; (c) both
    configurations at nf=16 card vs CPU: (a)'s network forward and input
-   vjp, (b)'s one train step (with remat);
+   vjp (K11 on the card, launched in both directions, the plain route on
+   the CPU), (b)'s one train step (with remat);
 10. the device mesh over torch.distributed (``buddy_tpu_torch/parallel``):
    (a) the training CLI under ``python -m torch.distributed.run --standalone
    --nproc_per_node=1`` (NCCL, world 1, ``exp.mesh.dp=-1``) at nf=8 for 2
@@ -179,7 +187,8 @@ Phases, each printing one line:
 
 A JSON line of the kernels' results precedes the last line (K1's float32
 rows from phase 6, their launches those of its training loop; K2's check
-at the training shapes under its rows' ``training_shape``), which is
+at the training shapes under its rows' ``training_shape``; K11's four rows
+at phase 9's top blocks, their launches those of run (a)), which is
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script then
 exits non-zero without that line.  It imports nothing of JAX.
 """
@@ -3161,105 +3170,215 @@ DDPM_NET = ["network.resblock_type=ddpm", "network.progressive=none",
 FIR_STEPS = 2                   # diffusion steps of run (a)
 REMAT_STEPS = 3                 # train steps of run (b), each way
 SMALL_NET = ["network.nf=16", "network.ch_mult=[1,2,2,2]", "network.num_res_blocks=1"]
+FIR_TOP = {"up": (8, 256, 128, 264), "down": (8, 128, 256, 528)}   # run (a)'s top blocks' inputs
+K11_KERNEL = "upfirdn_kernel"   # csrc/upfirdn.cu's kernel (two instances: float4, float)
+# the kernels line's K11 rows: the U-Net's up and down passes, forward and
+# input vjp, at run (a)'s top blocks
+K11_ROWS = {"upfirdn_up": ("top up-block", 0), "upfirdn_up_vjp": ("top up-block", 1),
+            "upfirdn_down": ("top down-block", 0), "upfirdn_down_vjp": ("top down-block", 1)}
 
 
 def fir_ops(prof) -> list:
-    """The profiled FIR convolutions: the ``aten::convolution`` /
-    ``aten::convolution_backward`` ops with a depthwise 4 x 4 weight (C, 1,
-    4, 4: the shipped fir_kernel's), which no other convolution of the
-    U-Net has (needs ``record_shapes``)."""
+    """The profiled FIR convolutions of the library route K11 replaced: the
+    ``aten::convolution`` / ``aten::convolution_backward`` ops with a
+    depthwise 4 x 4 weight (C, 1, 4, 4: the shipped fir_kernel's), which no
+    other convolution of the U-Net has (needs ``record_shapes``); run (a)
+    must show none."""
     def fir(e):
         return e.name in ("aten::convolution", "aten::convolution_backward") and any(
             len(sh) == 4 and sh[1] == 1 and sh[2] == sh[3] == 4 for sh in e.input_shapes)
     return [e for e in prof.events() if fir(e)]
 
 
-def fir_kernels_ms(prof) -> dict:
-    """{kernel name: [device ms, launches]} of the kernels the FIR
-    convolutions launched (forward and backward), from the kernels the
-    profiler attaches to each op and its children."""
+def k11_profile_ms(rows) -> dict:
+    """{K11's kernel (with its template argument): [device ms, launches]}
+    from a profile's (key, ms, count) rows."""
     found = {}
-
-    def walk(e):
-        for kern in e.kernels:
-            f = found.setdefault(kernel_name(kern.name), [0.0, 0])
-            f[0] += kern.duration / 1e3
-            f[1] += 1
-        for c in e.cpu_children:
-            walk(c)
-
-    for e in fir_ops(prof):
-        walk(e)
+    for key, ms, count in rows:
+        if K11_KERNEL in key:
+            name = key.removeprefix("void ").replace("(anonymous namespace)::", "").split("(")[0]
+            f = found.setdefault(name, [0.0, 0])
+            f[0] += ms
+            f[1] += count
     return found
 
 
-def fir_op_checks(dev) -> dict:
-    """FIR resampling at the top up- and down-block shapes of run (a),
-    float32 in channels_last: the wrapper (``upsample_2d`` / ``downsample_2d``,
-    one depthwise transposed / strided convolution) against its
-    zero-stuffing definition (``upfirdn2d_plain``), forward and input vjp,
-    each timed cold (CUDA events after an L2 flush) beside the byte bound
-    (input read once, output written once) and the operation bound (the
-    kernel's taps that meet a nonzero input, float32)."""
+def k11_kind(direction: str, ay) -> str:
+    """The kernels-line row of a K11 launch: the up or the down pass of the
+    U-Net, forward or input vjp (the up pass's vjp is a down-type launch)."""
+    up_type = ay.up > 1
+    if direction == "upfirdn2d":
+        return "upfirdn_up" if up_type else "upfirdn_down"
+    return "upfirdn_down_vjp" if up_type else "upfirdn_up_vjp"
+
+
+def k11_us(call, counter, what: str, cold: bool = True) -> float:
+    """Device us of the one K11 launch of call(): a call must add one to the
+    wrapper's count (``counter``) and the profiler must show no kernel but
+    K11 in 20 calls (after an L2 flush each when ``cold``); the time comes
+    from a window that holds all 20 launches, else (the profiler loses some
+    of a window's launches late in a run, as at K1's float32 shapes) from
+    CUDA events over the same calls, logged (``call_us``)."""
+    n = counter.launches
+    call()
+    if counter.launches - n != 1:
+        raise AssertionError(f"{what}: {counter.launches - n} K11 launches in one call")
+    for _ in range(PROFILE_TRIES):
+        found = profile_device_us(call, cold=cold)
+        if set(found) - {K11_KERNEL}:
+            raise AssertionError(f"{what}: a call runs {found}, not K11 alone")
+        if found.get(K11_KERNEL, [0, 0])[1] == 20:
+            return found[K11_KERNEL][0] / 20
+        _retake(f"{what}: {found.get(K11_KERNEL, [0, 0])[1]} launches of {K11_KERNEL} in 20 "
+                f"calls")
+    return call_us({}, call, cold=cold)
+
+
+def fir_case(dev, label: str, x, kern, args: dict, gen, one_d: bool = False) -> dict:
+    """K11 at one geometry: ``upfirdn2d`` (``upfirdn1d`` when ``one_d``) and
+    its input vjp through autograd against the zero-stuffing definition and
+    its autograd vjp on the same CUDA tensors (1e-5 of the peak), two calls
+    of each direction bit for bit, the output in the input's memory format;
+    each direction's device us a launch cold (after an L2 flush) and warm
+    (``k11_us``: one K11 launch a call and no other kernel), wrapper
+    ms (cold, CUDA events), the plain version's ms (the definition; for the
+    vjp the definition of the adjoint), the byte bound (input read once,
+    output written once; the operations, the taps that meet a nonzero
+    input, are far below it) and as ``library`` the depthwise route the
+    port ran before K11 (``upfirdn_conv``: one library convolution)."""
     import torch
     from buddy_tpu_torch.ops import resample as R
-    gen = torch.Generator().manual_seed(13)
-    out = {}
-    for what, shape in (("up", (8, 256, 128, 264)), ("down", (8, 128, 256, 528))):
-        x = torch.randn(shape, generator=gen).to(dev).contiguous(
-            memory_format=torch.channels_last)
-        if what == "up":
-            kern, args = R.fir_kernel((1, 3, 3, 1), 4.0), dict(up=2, pad=(2, 1))
-            call = lambda v: R.upsample_2d(v)
-        else:
-            kern, args = R.fir_kernel((1, 3, 3, 1), 1.0), dict(down=2, pad=(1, 1))
-            call = lambda v: R.downsample_2d(v)
-        plain = lambda v: R.upfirdn2d_plain(v, kern, **args)
-        xr = x.detach().requires_grad_(True)
-        y = call(xr)
-        g = torch.randn(y.shape, generator=gen).to(dev).contiguous(
-            memory_format=torch.channels_last)
-        (dx,) = torch.autograd.grad(y, xr, g)
-        xp = x.detach().requires_grad_(True)
-        yp = plain(xp)
-        (dxp,) = torch.autograd.grad(yp, xp, g)
-        tol_y, tol_dx = 1e-5 * float(yp.detach().abs().max()), 1e-5 * float(dxp.abs().max())
-        e_y, e_dx = max_err(y.detach(), yp.detach()), max_err(dx, dxp)
-        check(f"FIR {what} forward", e_y, tol_y)
-        check(f"FIR {what} input vjp", e_dx, tol_dx)
-        del yp, dxp, y, dx
-        n_bytes = 4 * (x.numel() + g.numel())
-        taps = (kern.shape[0] // 2) ** 2 if what == "up" else kern.numel()
-        b_ms, b_by = bound_ms(n_bytes, 2 * taps * g.numel())
-        bwd = lambda f: torch.autograd.grad(f(xr), xr, g)
-
-        def timed(f):
-            with torch.no_grad():
-                return cuda_ms(lambda: f(x), reps=10)
-
-        out[what] = {"x": list(shape), "y": list(g.shape),
-                     "err_fwd": e_y, "tol_fwd": tol_y, "err_vjp": e_dx, "tol_vjp": tol_dx,
-                     "ms_fwd": timed(call), "plain_ms_fwd": timed(plain),
-                     "ms_fwd_and_vjp": cuda_ms(lambda: bwd(call), reps=10),
-                     "plain_ms_fwd_and_vjp": cuda_ms(lambda: bwd(plain), reps=10),
-                     "bound_ms_fwd": b_ms, "bound_by": b_by, "bytes_fwd": n_bytes}
-        del x, xr, g
-        torch.cuda.empty_cache()
-    log("FIR resampling at run (a)'s top blocks (float32, channels_last; wrapper = one depthwise "
-        "library convolution, plain = zero-stuffing + pad + depthwise convolution; ms cold, CUDA "
-        "events; bound: input read once, output written once): " + json.dumps(out))
+    up, down, pad = args.get("up", 1), args.get("down", 1), args["pad"]
+    fn, plain = (R.upfirdn1d, R.upfirdn1d_plain) if one_d else (R.upfirdn2d, R.upfirdn2d_plain)
+    x4, k2 = (x.unsqueeze(2), kern.view(1, -1)) if one_d else (x, kern)
+    ay = R.make_axis(1, 1, 1, 1, (0, 0)) if one_d else \
+        R.make_axis(x4.shape[2], k2.shape[0], up, down, pad)
+    ax = R.make_axis(x4.shape[3], k2.shape[1], up, down, pad)
+    by, bx = R.adjoint_axis(ay), R.adjoint_axis(ax)
+    kd, k2d, kfd = kern.to(dev), k2.to(dev), k2.flip(0, 1).to(dev)   # K11 takes kern on the host
+    fmt = torch.channels_last if x4.is_contiguous(memory_format=torch.channels_last) and \
+        not x4.is_contiguous() else torch.contiguous_format
+    xr = x.detach().requires_grad_(True)
+    y = fn(xr, kern, **args)
+    g4 = torch.randn((x4.shape[0], x4.shape[1], ay.out, ax.out), generator=gen).to(dev)
+    g4 = g4.contiguous(memory_format=fmt)
+    g = g4.squeeze(2) if one_d else g4
+    (dx,) = torch.autograd.grad(y, xr, g)
+    xp = x.detach().requires_grad_(True)
+    yp = plain(xp, kd, **args)
+    (dxp,) = torch.autograd.grad(yp, xp, g)
+    y, yp = y.detach(), yp.detach()
+    tol_y, tol_dx = 1e-5 * float(yp.abs().max()), 1e-5 * float(dxp.abs().max())
+    e_y, e_dx = max_err(y, yp), max_err(dx, dxp)
+    check(f"K11 {label} forward", e_y, tol_y)
+    check(f"K11 {label} input vjp", e_dx, tol_dx)
+    fwd = lambda: fn(x, kern, **args)
+    vjp = lambda: R.upfirdn2d_backward(g4, k2, ay, ax)
+    with torch.no_grad():
+        if not torch.equal(y, fwd()) or not torch.equal(dx, vjp().squeeze(2) if one_d else vjp()):
+            raise AssertionError(f"K11 {label}: two calls differ")
+        if not y.is_contiguous(memory_format=fmt) or not dx.is_contiguous(memory_format=fmt):
+            raise AssertionError(f"K11 {label}: the output left the input's memory format")
+        del yp, dxp, xp, xr
+        out = {"x": list(x.shape), "y": list(y.shape), "up": up, "down": down, "pad": list(pad),
+               "taps": list(k2.shape), "channels_last": fmt == torch.channels_last,
+               "err": [e_y, e_dx], "tol": [tol_y, tol_dx]}
+        n_bytes = 4 * (x.numel() + y.numel())
+        del y, dx
+        taps = -(-k2.shape[0] // up) * -(-k2.shape[1] // up)
+        for what, call, counter, pl, lib, n_out, n_taps in (
+                ("fwd", fwd, R.upfirdn2d, lambda: plain(x, kd, **args),
+                 lambda: R.upfirdn_conv(x4, k2d, ay, ax), ay.out * ax.out, taps),
+                ("vjp", vjp, R.upfirdn2d_backward, lambda: R.upfirdn_plain(g4, kfd, by, bx),
+                 lambda: R.upfirdn_conv(g4, kfd, by, bx), by.out * bx.out,
+                 -(-k2.shape[0] // down) * -(-k2.shape[1] // down))):
+            out[what] = {
+                "device_us": k11_us(call, counter, f"K11 {label} {what}"),
+                "device_us_warm": k11_us(call, counter, f"K11 {label} {what} warm", cold=False),
+                "ms": cuda_ms(call, reps=10), "plain_ms": cuda_ms(pl, reps=10),
+                "library_ms": cuda_ms(lib, reps=10),
+                "bound": bound_ms(n_bytes, 2.0 * n_taps * n_out * x4.shape[0] * x4.shape[1])}
+    torch.cuda.empty_cache()
     return out
 
 
-def fir_blind_run(dev, wrappers) -> dict:
+def fir_op_checks(dev, record: dict) -> dict:
+    """K11 (``fir_case``) at the top up- and down-block shapes of run (a)
+    (float32, channels_last, the shipped kernel), at every other distinct
+    FIR call shape run (a) recorded (``upfirdn2d.record``: its forward
+    launches), and at the generic cases at small sizes: up 3 / down 2, a
+    negative pad, the asymmetric (1, 2, 4, 1) kernel, a non-square 3 x 5
+    kernel, C = 1 and 3 (the scalar path) in NCHW and channels_last, and
+    ``upfirdn1d`` up and down."""
+    import torch
+    from buddy_tpu_torch.ops import resample as R
+    gen = torch.Generator().manual_seed(13)
+    cl = lambda t: t.contiguous(memory_format=torch.channels_last)
+    rnd = lambda *shape: torch.randn(shape, generator=gen).to(dev)
+    shipped_up, shipped_down = R.fir_kernel((1, 3, 3, 1), 4.0), R.fir_kernel((1, 3, 3, 1), 1.0)
+    cases = {"top up-block": (cl(rnd(*FIR_TOP["up"])), shipped_up, dict(up=2, pad=(2, 1))),
+             "top down-block": (cl(rnd(*FIR_TOP["down"])), shipped_down,
+                                dict(down=2, pad=(1, 1)))}
+    seen = {(tuple(v[0].shape), True, tuple(v[1].flatten().tolist()), v[2].get("up", 1))
+            for v in cases.values()}
+    for (direction, shape, is_cl, ay, ax, taps), _ in sorted(record.items(), key=str):
+        if direction != "upfirdn2d" or (shape, is_cl, taps, ay.up) in seen:
+            continue
+        seen.add((shape, is_cl, taps, ay.up))
+        x = rnd(*shape)
+        cases[f"run (a) {'up' if ay.up > 1 else 'down'} {list(shape)}"] = (
+            cl(x) if is_cl else x, torch.tensor(taps).view(ay.taps, ax.taps),
+            dict(up=ay.up, down=ay.down, pad=(ay.pad0, ay.pad1)))
+    asym = R.fir_kernel((1, 2, 4, 1), 1.0)
+    k35 = torch.rand((3, 5), generator=gen) + 0.1
+    k35 /= k35.sum()
+    cases.update({
+        "up 3 down 2, C=3 NCHW": (rnd(2, 3, 37, 45), asym, dict(up=3, down=2, pad=(0, 2))),
+        "up 2 pad (5,-1), C=16 channels_last": (cl(rnd(2, 16, 37, 45)), asym,
+                                                dict(up=2, pad=(5, -1))),
+        "3x5 up 2, C=16 channels_last": (cl(rnd(2, 16, 37, 45)), k35, dict(up=2, pad=(2, 1))),
+        "3x5 down 2, C=16 channels_last": (cl(rnd(2, 16, 37, 45)), k35, dict(down=2, pad=(1, 1))),
+        "C=1 down 2": (rnd(8, 1, 256, 528), asym, dict(down=2, pad=(1, 1))),
+        "C=3 channels_last up 2": (cl(rnd(8, 3, 128, 264)), asym, dict(up=2, pad=(2, 1)))})
+    out = {}
+    for label, (x, kern, args) in cases.items():
+        out[label] = fir_case(dev, label, x, kern, args, gen)
+        del x
+    k1d = torch.tensor([1.0, 2.0, 4.0, 1.0]) / 4
+    for label, args in (("upfirdn1d up 2, (8,16,16384)", dict(up=2, pad=(2, 1))),
+                        ("upfirdn1d down 2, (8,16,16384)", dict(down=2, pad=(1, 1)))):
+        out[label] = fir_case(dev, label, rnd(8, 16, 16384), k1d, args, gen, one_d=True)
+    with open(os.path.join(OUT_DIR, "fir_k11.json"), "w") as f:
+        json.dump(out, f, indent=1)
+    summary = {k: {"x": v["x"], "device_us": [round(v["fwd"]["device_us"], 2),
+                                              round(v["vjp"]["device_us"], 2)],
+                   "bound_us": [round(1e3 * v["fwd"]["bound"][0], 2),
+                                round(1e3 * v["vjp"]["bound"][0], 2)],
+                   "library_ms": [round(v["fwd"]["library_ms"], 4),
+                                  round(v["vjp"]["library_ms"], 4)],
+                   "err_of_tol": [round(v["err"][0] / v["tol"][0], 3),
+                                  round(v["err"][1] / v["tol"][1], 3)]}
+               for k, v in out.items()}
+    log(f"kernel K11 (FIR, csrc/upfirdn.cu): forward and input vjp within 1e-5 of the peak of "
+        f"the zero-stuffing definition at {len(out)} geometries, one launch a call, bit for bit "
+        f"between two calls, the output in the input's memory format; [forward, vjp] device us "
+        f"cold, byte bound us, the library depthwise route's ms, error / tolerance (the whole "
+        f"table in chiprun_out/fir_k11.json): " + json.dumps(summary))
+    return out
+
+
+def fir_blind_run(dev, wrappers) -> tuple:
     """Run (a): ``Tester.do_test()`` in blind mode, B=8 x 65536, full width
     with FIR resampling and both residual pyramids, float32 body, full
     guidance, 10 operator updates a step, WPE warm init, T=FIR_STEPS:
     the counts set to 0 just before the second run and read just after,
-    five WAV sets of 8 finite files, K1 launched in every step; then one
-    more run profiled (device ms, launches and idle a step; the FIR
-    convolutions' device ms by kernel name)."""
+    five WAV sets of 8 finite files, K1 and K11 (forward and input vjp)
+    launched in every step, every K11 launch recorded by its geometry; then
+    one more run profiled (device ms, launches and idle a step; K11's
+    device ms and launches a step by kernel name; no FIR-shaped library
+    convolution).  Returns the results and the record."""
     import torch
+    from buddy_tpu_torch.ops import resample as R
     args, net, tester, sampler_s, run = blind_tester(
         dev, steps=FIR_STEPS, network=FIR_NET, run_name="fir_residual")
     t0 = time.perf_counter()
@@ -3267,47 +3386,71 @@ def fir_blind_run(dev, wrappers) -> dict:
     cold = time.perf_counter() - t0
     for w in wrappers.values():
         w.launches = 0
+    R.upfirdn2d.launches = R.upfirdn2d_backward.launches = 0
+    R.upfirdn2d.record = {}
     torch.cuda.reset_peak_memory_stats()
-    run()
+    try:
+        run()
+    finally:
+        record, R.upfirdn2d.record = R.upfirdn2d.record, None
     launches = {name: w.launches for name, w in wrappers.items()}
+    k11 = [R.upfirdn2d.launches / FIR_STEPS, R.upfirdn2d_backward.launches / FIR_STEPS]
     check_outputs(tester, "blind_dereverberation", 8, 65536, blind=True)
     k1_per_step = launches["groupnorm_silu_fwd"] / FIR_STEPS
     if not k1_per_step > 0 or not launches["groupnorm_silu_bwd"] > 0:
         raise AssertionError(f"run (a): K1 launches {launches}")
+    if not min(k11) > 0:
+        raise AssertionError(f"run (a): K11 launches a step (forward, vjp) {k11}")
+    by_row = {}
+    for (direction, _, _, ay, _, _), n in record.items():
+        row = k11_kind(direction, ay)
+        by_row[row] = by_row.get(row, 0) + n
+    if sorted(by_row) != sorted(K11_ROWS) or not min(by_row.values()) > 0:
+        raise AssertionError(f"run (a): K11 launches by pass and direction {by_row}")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     with device_profile(cpu=True, record_shapes=True) as prof:
         t1 = time.perf_counter()
         run()
         wall = (time.perf_counter() - t1) * 1e3
+    library_fir = fir_ops(prof)
+    if library_fir:
+        raise AssertionError(f"run (a): {len(library_fir)} FIR-shaped library convolutions in "
+                             f"the profile (K11 should run every FIR call)")
     rows = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
             if e.self_device_time_total > 0 and e.device_type == torch.autograd.DeviceType.CUDA]
     with open(os.path.join(OUT_DIR, "profile_fir_residual.txt"), "w") as f:
         for name, ms, count in sorted(rows, key=lambda r: -r[1]):
             f.write(f"{ms:12.3f} ms {count:8d}x  {name}\n")
     device = sum(r[1] for r in rows)
-    fir = fir_kernels_ms(prof)
+    fir = k11_profile_ms(rows)
     if not fir:
-        raise AssertionError("run (a): the profile shows no FIR convolution")
+        raise AssertionError("run (a): the profile shows no K11 launch")
     fir_ms = sum(v[0] for v in fir.values())
     res = {"sampler_ms_per_step": round(sampler_s[1] / FIR_STEPS * 1e3, 1),
            "device_ms_per_step": round(device / FIR_STEPS, 3),
            "launches_per_step": round(sum(r[2] for r in rows) / FIR_STEPS, 1),
            "idle_share": round(1 - device_busy_ms(prof) / wall, 4),
            "k1_launches_per_step": [k1_per_step, launches["groupnorm_silu_bwd"] / FIR_STEPS],
+           "k11_launches_per_step": k11,
+           "k11_launches_by_row": by_row,
            "fir_device_ms_per_step": round(fir_ms / FIR_STEPS, 3),
            "fir_share_of_device": round(fir_ms / device, 4), "peak_gib": round(peak, 2),
            "cold_run_s": round(cold, 1)}
     log(f"run (a): Tester.do_test(), blind, B=8 x 65536, NCSN++ nf={args['network']['nf']} "
         f"{' '.join(FIR_NET)} ({net.num_params / 1e6:.2f} M params, float32 body), T={FIR_STEPS}, "
         f"full guidance, 10 updates/step, WPE warm init: 5 directories x 8 finite WAVs, "
-        f"metrics.jsonl 8 lines; " + json.dumps(res))
+        f"metrics.jsonl 8 lines; no FIR-shaped library convolution in the profile; "
+        + json.dumps(res))
     log("run (a): the port's kernels' launches in the counted run: " + json.dumps(launches))
-    log("run (a) profile: the FIR convolutions' device ms a step by kernel [ms, launches a "
-        "step]: " + json.dumps({k: [round(v[0] / FIR_STEPS, 3), v[1] / FIR_STEPS]
-                               for k, v in sorted(fir.items(), key=lambda kv: -kv[1][0])}))
+    log("run (a) profile: K11's device ms a step by kernel [ms, launches a step]: "
+        + json.dumps({k: [round(v[0] / FIR_STEPS, 3), v[1] / FIR_STEPS]
+                      for k, v in sorted(fir.items(), key=lambda kv: -kv[1][0])})
+        + "; K11 launches recorded by geometry [direction, x, channels_last, up, down, pad, "
+        "count]: " + json.dumps([[d, list(s), c, ay.up, ay.down, [ay.pad0, ay.pad1], n]
+                                 for (d, s, c, ay, _, _), n in sorted(record.items(), key=str)]))
     del net, tester
     torch.cuda.empty_cache()
-    return res
+    return res, record
 
 
 def remat_training(dev, wrappers) -> dict:
@@ -3407,7 +3550,9 @@ def config_space_card_vs_cpu(dev) -> None:
     x = torch.from_numpy(load_wavs("degraded", 2, 16384))
     cnoise = torch.tensor([-1.0, 0.3])
     ct = torch.randn(x.shape, generator=gen)
+    from buddy_tpu_torch.ops import resample as R
     outs = []
+    k11 = [R.upfirdn2d.launches, R.upfirdn2d_backward.launches]
     for d in (dev, torch.device("cpu")):
         args = compose("conf_VCTK.yaml", SMALL_NET + FIR_NET)
         net = instantiate(args["network"], device=d, seed=3)
@@ -3415,13 +3560,17 @@ def config_space_card_vs_cpu(dev) -> None:
         y = net(xd, cnoise.to(d))
         (g,) = torch.autograd.grad(y, xd, ct.to(d))
         outs.append((y.detach().cpu(), g.cpu()))
+        if d == dev:
+            k11 = [R.upfirdn2d.launches - k11[0], R.upfirdn2d_backward.launches - k11[1]]
+    if not min(k11) > 0:
+        raise AssertionError(f"run (c): K11 launches on the card (forward, vjp) {k11}")
     (yc, gc), (yp, gp) = outs
     e_y, e_g = max_err(yc, yp), max_err(gc, gp)
     check("run (c): FIR residual network forward, card vs CPU", e_y, 1e-4 * float(yp.abs().max()))
     check("run (c): FIR residual network input vjp, card vs CPU", e_g,
           1e-4 * float(gp.abs().max()))
     log(f"run (c): {' '.join(FIR_NET)} at nf=16 (B=2 x 16384, float32): forward and input vjp, "
-        f"card vs CPU, max abs error {e_y:.3e} / {e_g:.3e} ({e_y / float(yp.abs().max()):.2e} / "
+        f"card (K11: {k11[0]} + {k11[1]} launches) vs CPU (the plain route), max abs error {e_y:.3e} / {e_g:.3e} ({e_y / float(yp.abs().max()):.2e} / "
         f"{e_g / float(gp.abs().max()):.2e} of the peak; tolerance 1e-4 of the peak)")
     train_step_card_vs_cpu(dev, SMALL_NET + DDPM_NET + ["network.remat=true"],
                            "nf=16, ddpm, remat")
@@ -4460,11 +4609,14 @@ def main() -> int:
     small_int8 = small_reference_int8(dev)
     train_step_card_vs_cpu(dev)
     t0 = time.perf_counter()
-    fir_op_checks(dev)
-    fir_blind_run(dev, wrappers)
+    fir_run, fir_record = fir_blind_run(dev, wrappers)
+    t1 = time.perf_counter()
+    fir = fir_op_checks(dev, fir_record)
+    k11_s = time.perf_counter() - t1
     remat_training(dev, wrappers)
     config_space_card_vs_cpu(dev)
-    log(f"phase 9 (the rest of NCSN++'s configuration space) in {time.perf_counter() - t0:.1f} s")
+    log(f"phase 9 (the rest of NCSN++'s configuration space) in {time.perf_counter() - t0:.1f} s, "
+        f"of which K11's checks {k11_s:.1f} s")
     t0 = time.perf_counter()
     mesh_phase(dev)
     log(f"phase 10 (the device mesh over torch.distributed) in {time.perf_counter() - t0:.1f} s")
@@ -4492,6 +4644,21 @@ def main() -> int:
                                                    for k in (what, what + "_bwd")}
     for name, count in runs["serving_identity"]["port_launches"].items():
         checks[name]["extra"]["launches_fast_serving"] = count
+    # K11's rows: the top blocks of phase 9, their launches those of run (a)
+    for name, (label, i) in K11_ROWS.items():
+        c, d = fir[label], fir[label]["vjp" if i else "fwd"]
+        meta[name] = ("cuda", "buddy_tpu_torch/csrc/upfirdn.cu", "buddy_tpu/ops/resample.py:33")
+        launches[name] = fir_run["k11_launches_by_row"][name]
+        checks[name] = {"err": c["err"][i], "tol": c["tol"][i], "bound": d["bound"],
+                        "times": (d["ms"], d["plain_ms"], d["library_ms"]),
+                        "shape": c["y"] if i else c["x"],
+                        "extra": {"kernel": K11_KERNEL, "device_us": d["device_us"],
+                                  "device_us_warm": d["device_us_warm"],
+                                  "launches_from": "phase 9 run (a), T=2",
+                                  "library": "the depthwise library convolution the port "
+                                             "ran before K11"}}
+    checks["upfirdn_up"]["extra"]["device_us_other_geometries"] = {
+        k: [v["fwd"]["device_us"], v["vjp"]["device_us"]] for k, v in fir.items()}
     kernels = []
     for name, (route, source, replaces) in meta.items():
         c = checks[name]

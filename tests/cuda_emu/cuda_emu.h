@@ -1,5 +1,5 @@
-// CPU emulation of the CUDA built-ins that csrc/wpe_solve.cu and csrc/qconv.cu
-// use, for g++ (C++20): one std::thread per CUDA thread, all blocks of a grid
+// CPU emulation of the CUDA built-ins that csrc/wpe_solve.cu, csrc/qconv.cu and
+// csrc/upfirdn.cu use, for g++ (C++20): one std::thread per CUDA thread, all blocks of a grid
 // (up to three dimensions) at once, a
 // std::barrier per block for __syncthreads and per warp for the warp-level
 // operations (shuffles, reductions, ballots exchange values through a slot per
@@ -29,8 +29,10 @@
 
 struct double2 { double x, y; };
 struct float2 { float x, y; };
+struct alignas(16) float4 { float x, y, z, w; };
 inline double2 make_double2(double x, double y) { return {x, y}; }
 inline float2 make_float2(float x, float y) { return {x, y}; }
+inline float4 make_float4(float x, float y, float z, float w) { return {x, y, z, w}; }
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
@@ -164,3 +166,4 @@ inline double __dmul_rn(double a, double b) { return a * b; }
 // rcp.approx.ftz.f64 as a float32 reciprocal: about as many bits as the card's
 inline double emu_rcp_approx(double d) { return (double)(1.0f / (float)d); }
 using std::fma;
+using std::fmaf;
