@@ -1,0 +1,1 @@
+"""The per-layer readers, one file a metric, found by the metric's name."""
