@@ -26,6 +26,7 @@ import torch
 
 from buddy_tpu_torch.losses import get_loss
 from buddy_tpu_torch.sampling.euler_heun import EulerHeunSampler
+from buddy_tpu_torch.utils.spans import span
 
 
 def _std(x: torch.Tensor) -> torch.Tensor:
@@ -145,19 +146,21 @@ class EulerHeunSamplerDPS(EulerHeunSampler):
             else self.rec_loss(y_ref, degrade(xd))
         (g,) = torch.autograd.grad(rec.sum(), xd)
         if x_hat is not None:
-            (g,) = torch.autograd.grad(x_den, x_hat, g)
+            with span("dps.vjp"):
+                (g,) = torch.autograd.grad(x_den, x_hat, g)
         normguide = g.reshape(g.shape[0], -1).norm(dim=-1, keepdim=True) / self.audio_len ** 0.5
         return self.zeta / (normguide + 1e-8) * g
 
     def _guided_update(self, x_hat, t_hat, operator, blind, params, state, H, noise):
         """Denoise, (blind) optimise the operator, guide at one sigma."""
         if self.guidance_jacobian == "identity":
-            with torch.no_grad():
+            with torch.no_grad(), span("dps.denoise"):
                 x_den = self._denoise(x_hat, t_hat)
             x_leaf = None
         else:
             x_leaf = x_hat.detach().requires_grad_(True)
-            x_den = self._denoise(x_leaf, t_hat)
+            with span("dps.denoise"):
+                x_den = self._denoise(x_leaf, t_hat)
         if blind:
             params, state, H = self._optimize_op(operator, x_den.detach(), t_hat, params,
                                                  state, noise)
@@ -175,20 +178,21 @@ class EulerHeunSamplerDPS(EulerHeunSampler):
 
     def _scan_step(self, operator, blind, carry, t_i, t_ip1, gamma_i, noise):
         """One guided reverse-diffusion step; carry = (x, params, state, H)."""
-        x, params, state, H = carry
-        t_i, t_ip1 = np.float32(t_i), np.float32(t_ip1)
-        t_hat = np.float32(t_i + np.float32(gamma_i) * t_i)
-        eps = noise.normal("eps", x.shape, x.device)
-        x_hat = x + float(np.sqrt(np.maximum(t_hat ** 2 - t_i ** 2, np.float32(0)))) * eps
-        x_den, d, params, state, H = self._guided_update(
-            x_hat, float(t_hat), operator, blind, params, state, H, noise)
-        dt = float(t_ip1 - t_hat)
-        x_next = x_hat + dt * d
-        if self.order == 2 and t_ip1 != 0:
-            x_den, d2, params, state, H = self._guided_update(
-                x_next, float(t_ip1), operator, blind, params, state, H, noise)
-            x_next = x_hat + dt * 0.5 * (d + d2)
-        return (x_next.detach(), params, state, H), x_den
+        with span("dps.step"):
+            x, params, state, H = carry
+            t_i, t_ip1 = np.float32(t_i), np.float32(t_ip1)
+            t_hat = np.float32(t_i + np.float32(gamma_i) * t_i)
+            eps = noise.normal("eps", x.shape, x.device)
+            x_hat = x + float(np.sqrt(np.maximum(t_hat ** 2 - t_i ** 2, np.float32(0)))) * eps
+            x_den, d, params, state, H = self._guided_update(
+                x_hat, float(t_hat), operator, blind, params, state, H, noise)
+            dt = float(t_ip1 - t_hat)
+            x_next = x_hat + dt * d
+            if self.order == 2 and t_ip1 != 0:
+                x_den, d2, params, state, H = self._guided_update(
+                    x_next, float(t_ip1), operator, blind, params, state, H, noise)
+                x_next = x_hat + dt * 0.5 * (d + d2)
+            return (x_next.detach(), params, state, H), x_den
 
     def _run(self, operator, blind, y, noise, params, H):
         self._prepare_observation(operator, y)
@@ -224,12 +228,13 @@ class EulerHeunSamplerDPS(EulerHeunSampler):
             if subband:
                 raise ValueError("informed subband mode needs H_batch")
             H_batch = operator.params.expand((ys.shape[0],) + operator.params.shape[-1:])
-        self._build_losses(operator, blind)
-        noise = noise if noise is not None else self.default_noise()
-        ys = ys.to(self.device)
-        params = {k: v.to(self.device) for k, v in (op_params_batch or {}).items()}
-        x, x_den, params, H = self._run(operator, blind, ys[:, 0], noise, params,
-                                        H_batch.to(self.device))
+        with span("dps.batch"):
+            self._build_losses(operator, blind)
+            noise = noise if noise is not None else self.default_noise()
+            ys = ys.to(self.device)
+            params = {k: v.to(self.device) for k, v in (op_params_batch or {}).items()}
+            x, x_den, params, H = self._run(operator, blind, ys[:, 0], noise, params,
+                                            H_batch.to(self.device))
         if blind:
             operator.params, operator.H = params, H
         return x_den[:, None]

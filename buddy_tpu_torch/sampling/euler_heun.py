@@ -15,6 +15,7 @@ import torch
 
 from buddy_tpu_torch.device import resolve_device
 from buddy_tpu_torch.sampling.schedule import create_schedule, get_gamma
+from buddy_tpu_torch.utils.spans import span
 
 
 class NoiseSource:
@@ -26,18 +27,27 @@ class NoiseSource:
     device and moves each draw to ``device``: a CPU generator gives a card
     run and a CPU run the same draws.  A test can replay another framework's
     draws by passing an object with the same ``normal`` and ``uniform``
-    methods."""
+    methods.  ``NoiseSource.draws`` counts the draws of every source, made
+    and moved to the device; each is the span ``noise.draw``."""
+
+    draws = 0
 
     def __init__(self, generator: torch.Generator):
         self.generator = generator
 
     def normal(self, kind: str, shape, device) -> torch.Tensor:
         g = self.generator
-        return torch.randn(shape, generator=g, device=g.device).to(device)
+        with span("noise.draw"):
+            out = torch.randn(shape, generator=g, device=g.device).to(device)
+        NoiseSource.draws += 1
+        return out
 
     def uniform(self, kind: str, shape, device) -> torch.Tensor:
         g = self.generator
-        return torch.rand(shape, generator=g, device=g.device).to(device)
+        with span("noise.draw"):
+            out = torch.rand(shape, generator=g, device=g.device).to(device)
+        NoiseSource.draws += 1
+        return out
 
 
 class ShardedNoise:

@@ -100,6 +100,7 @@ from buddy_tpu_torch.sampling.euler_heun import NoiseSource, ShardedNoise
 from buddy_tpu_torch.training import checkpoint as ckpt
 from buddy_tpu_torch.training import stats
 from buddy_tpu_torch.utils import log as utils_logging
+from buddy_tpu_torch.utils.spans import span
 
 
 class Trainer:
@@ -248,13 +249,14 @@ class Trainer:
         order is not deterministic (its workers share one seed counter and
         race for slots), so the ranks' batches disagree: the first rank's is
         broadcast over the mesh before each rank keeps its rows."""
-        batch = self.dset.next_batch() if hasattr(self.dset, "next_batch") \
-            else next(self.dset)
-        x = batch if isinstance(batch, torch.Tensor) else \
-            torch.from_numpy(np.asarray(batch, np.float32))
-        x = x.to(self.device, torch.float32)
-        pmesh.replicate(self.mesh, [x])
-        return pmesh.shard_batch(self.mesh, x)
+        with span("train.get_batch"):
+            batch = self.dset.next_batch() if hasattr(self.dset, "next_batch") \
+                else next(self.dset)
+            x = batch if isinstance(batch, torch.Tensor) else \
+                torch.from_numpy(np.asarray(batch, np.float32))
+            x = x.to(self.device, torch.float32)
+            pmesh.replicate(self.mesh, [x])
+            return pmesh.shard_batch(self.mesh, x)
 
     def _gradients(self, batch):
         """Loss, (bin sums, bin sums of squares, bin counts) and the
@@ -340,17 +342,18 @@ class Trainer:
         return g_norm
 
     def train_step(self):
-        batch = self.get_batch()
-        loss, bins = self._gradients(batch)
-        g_norm = self._update(self.it)
-        metrics = {"loss": loss, "loss_sq": loss * loss,
-                   "bin_sum": bins[0], "bin_sumsq": bins[1], "bin_count": bins[2],
-                   "count": torch.ones((), device=self.device),
-                   "grad_norm": g_norm, "grad_norm_sq": g_norm * g_norm}
-        if self._metrics_acc is None:
-            self._metrics_acc = metrics
-        else:           # on the device; no host sync until log time
-            self._metrics_acc = {k: self._metrics_acc[k] + v for k, v in metrics.items()}
+        with span("train.step", self.it):
+            batch = self.get_batch()
+            loss, bins = self._gradients(batch)
+            g_norm = self._update(self.it)
+            metrics = {"loss": loss, "loss_sq": loss * loss,
+                       "bin_sum": bins[0], "bin_sumsq": bins[1], "bin_count": bins[2],
+                       "count": torch.ones((), device=self.device),
+                       "grad_norm": g_norm, "grad_norm_sq": g_norm * g_norm}
+            if self._metrics_acc is None:
+                self._metrics_acc = metrics
+            else:           # on the device; no host sync until log time
+                self._metrics_acc = {k: self._metrics_acc[k] + v for k, v in metrics.items()}
 
     # ------------------------------------------------------------------
     def whole(self, state: dict):
